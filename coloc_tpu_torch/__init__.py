@@ -1,0 +1,39 @@
+"""coloc_tpu_torch — PyTorch/CUDA port of coloc_tpu for NVIDIA Hopper.
+
+The JAX package `coloc_tpu` is the reference; this package mirrors its module
+names and layout so each counterpart is found by name. It imports torch and
+numpy only, never jax or coloc_tpu.
+
+Idiom: plain functions on tensors, NamedTuples of tensors for the data model
+(fixed capacity + validity masks, as in coloc_tpu.types), an explicit
+`device` where a function creates tensors, and an explicit torch.Generator
+for RANSAC sampling.
+
+Ported so far (the headline match+localize op):
+  config, types, convert   — options, data model, numpy <-> tensor
+  ops/dispatch, ops/_build — device dispatch + launch counters, nvcc build
+  ops/hamming              — resident-bank 2-NN (kernel csrc/k2nn.cu)
+  matching                 — margin / ratio accept, match_with_map
+  geometry/{so3,camera,p3p}— P3P flats (kernel csrc/p3p.cu)
+  ransac, ops/ransac_rank  — NFA RANSAC, ladder pre-rank (csrc/ransac_rank.cu)
+  robust, sfm/{ba,localize}— absolute_pose_p3p, refine_pose_only, localize_image
+  io/synthetic             — numpy-only workload generator
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Geometry is precision-critical: the reference lost 0.04 deg -> 2.5 deg of
+# pose error to reduced-precision matmul passes (coloc_tpu/__init__.py).
+# Keep every float32 product in full float32 on the card: no TF32 in matmuls
+# or cuDNN.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from coloc_tpu_torch.config import (  # noqa: E402,F401
+    ColocConfig,
+    DetectorOptions,
+    MatcherOptions,
+)

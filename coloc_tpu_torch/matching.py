@@ -1,0 +1,44 @@
+"""Descriptor matching (counterpart of coloc_tpu.matching).
+
+Accept criteria: margin `second - best > threshold` (KORAL/CUDAK2NN parity)
+or Lowe ratio `best < ratio * second` (AKAZE/OpenMVG parity), plus
+`best <= 512` so a penalized invalid bank row is never accepted.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from coloc_tpu_torch.config import MatcherOptions
+from coloc_tpu_torch.ops import hamming
+from coloc_tpu_torch.types import Features, MapDB, Matches
+
+
+def _accept(idx, best, second, q_valid, opts: MatcherOptions,
+            threshold: int) -> Matches:
+    if opts.mode == "ratio":
+        ok = best.to(torch.float32) < opts.dist_ratio * second.to(torch.float32)
+    else:
+        ok = (second - best) > threshold
+    # a real hit has Hamming distance <= 512; more means the best was an
+    # invalid (penalized) bank row
+    ok = ok & q_valid & (best <= 512)
+    return Matches(idx=torch.where(ok, idx, -1).to(torch.int32), best=best,
+                   second=second)
+
+
+def pack_map_bank(mapdb: MapDB) -> hamming.Bank:
+    """The device-resident map descriptor bank (setMapData parity)."""
+    return hamming.pack_bank(mapdb.desc, mapdb.valid)
+
+
+def match_with_map(query: Features, mapdb: MapDB, opts: MatcherOptions,
+                   bank: Optional[hamming.Bank] = None) -> Matches:
+    """Frame-vs-map matching (matchSceneWithMap parity); idx indexes the
+    map's landmark bank. `bank`: a resident bank from pack_map_bank."""
+    if bank is None:
+        bank = pack_map_bank(mapdb)
+    idx, best, second = hamming.hamming_2nn_bank(query.desc, query.valid, bank)
+    return _accept(idx, best, second, query.valid, opts, opts.margin_threshold)

@@ -1,0 +1,124 @@
+"""Build and bind the port's CUDA kernels.
+
+Every `coloc_tpu_torch/csrc/*.cu` is compiled by nvcc for sm_90a into ONE
+shared library with a plain C interface, loaded with ctypes. The library is
+built on first use into `coloc_tpu_torch/_build/` (git-ignored), named by a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the cached file. Nothing here includes PyTorch's
+headers: a build takes seconds, not the minutes of a torch extension, and
+needs no ninja.
+
+A failed build raises with nvcc's output. There is no fallback.
+
+Flags: no --use_fast_math (approximate sqrt/division would break P3P
+parity with the plain twins), and -fmad=false so the kernels round like
+the plain PyTorch twins, which never fuse a multiply into an add.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every launcher: pointers, sizes, then device and stream;
+# each returns its cudaError_t
+_SIGNATURES = {
+    "coloc_k2nn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "coloc_p3p": [_P, _P, _P, _P, _I, _I, _P],
+    "coloc_ransac_rank": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: float = 0.0   # 0.0 when the library came from the cache
+build_log: str = ""          # nvcc/ptxas output of the last build
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are built from "
+            f"{CSRC} on first use")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path(nvcc: str) -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc.encode())
+    return BUILD_DIR / f"libcoloc_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _compile(nvcc: str, out: Path) -> None:
+    global build_seconds, build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
+    os.replace(tmp, out)
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built first if its sources changed."""
+    global _lib
+    if _lib is None:
+        nvcc = _nvcc()
+        path = library_path(nvcc)
+        if not path.is_file():
+            _compile(nvcc, path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.coloc_error_string.argtypes = [ctypes.c_int]
+        lib.coloc_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call launcher `name` and raise on the cudaError_t it returns (a launch
+    the card refuses never runs, and a later synchronize would not say so)."""
+    lib = load()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.coloc_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

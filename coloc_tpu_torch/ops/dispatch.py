@@ -1,0 +1,63 @@
+"""Device dispatch for kernels (counterpart of coloc_tpu.ops.dispatch).
+
+One rule: a CUDA tensor goes to the hand-written Hopper kernel, a CPU tensor
+to the kernel's plain PyTorch twin. There is no switch that sends CUDA
+tensors down the plain path and no fallback when a build or launch fails:
+those raise. Interpret mode has no counterpart; the plain twins serve the
+CPU.
+
+Each kernel wrapper adds one to its launch count where it launches its
+kernel, and nowhere else, so a run can prove that its main path went
+through the kernels (chip_smoke.py reads the counts).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+KERNELS = ("k2nn", "p3p", "ransac_rank")
+_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain twin); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel or plain path for device {t.device}")
+
+
+def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+                  device: torch.device) -> None:
+    """Raise unless `t` is what a kernel reads through its raw pointer:
+    `dtype`, `shape` (None entries match any extent), on `device`, and
+    contiguous."""
+    ok_shape = t.dim() == len(shape) and all(
+        s is None or s == n for s, n in zip(shape, t.shape))
+    if t.dtype != dtype or not ok_shape or t.device != device:
+        raise ValueError(
+            f"{name}: expected {dtype} {tuple(shape)} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def count_launch(name: str) -> None:
+    _LAUNCHES[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_LAUNCHES)

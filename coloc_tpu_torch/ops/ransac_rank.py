@@ -1,0 +1,119 @@
+"""Fused RANSAC pre-rank: P3P residual + threshold-ladder count (counterpart
+of coloc_tpu.ops.ransac_rank).
+
+The NFA pre-rank (ransac.py, scoring="nfa") needs per candidate model only
+a scalar: the number of ladder rungs thr * 4^j, j in [jmax - n_rungs + 1,
+jmax], that each valid correspondence's residual clears, summed. The
+kernel computes it without materializing the (Hm, M) residual matrix, in
+product form (no division):
+  err < thr 4^j  <=>  (u^2 + v^2) < (thr 4^j) zc^2.
+
+  ladder_rank        — the CUDA kernel csrc/ransac_rank.cu on a CUDA tensor,
+                       ladder_rank_plain on CPU
+  ladder_rank_plain  — the kernel's plain twin, (Hm, M) planes in memory
+  p3p_ladder_rank    — the P3P entry (zmode "pos"): folds focal into the model
+                       and observation operands, then ladder_rank
+
+zmode "pos" (P3P reprojection): Z <= 0 counts 0, the denominator clamps at
+1e-9. zmode "nonzero" (homography transfer): |Z| < 1e-9 counts 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from coloc_tpu_torch.ops import _build, dispatch
+# the ladder's shape has ONE source of truth, as in coloc_tpu
+from coloc_tpu_torch.ransac import LADDER_JMAX, LADDER_RUNGS
+
+_ZMODES = {"pos": 0, "nonzero": 1}
+
+
+def ladder_rank_plain(eflat: torch.Tensor, xh: torch.Tensor, obs: torch.Tensor,
+                      maskf: torch.Tensor, thr_sq: float, zmode: str = "pos",
+                      jmax: int = LADDER_JMAX,
+                      n_rungs: int = LADDER_RUNGS) -> torch.Tensor:
+    """Plain twin of csrc/ransac_rank.cu: eflat (Hm,12), xh (4,M), obs (2,M),
+    maskf (M,) -> (Hm,) float32."""
+
+    def plane(c0):
+        acc = eflat[:, c0:c0 + 1] * xh[0:1, :]
+        for k in range(1, 4):
+            acc = acc + eflat[:, c0 + k:c0 + k + 1] * xh[k:k + 1, :]
+        return acc                                    # (Hm, M)
+
+    A0, A1, Z = plane(0), plane(4), plane(8)
+    u = A0 - obs[0:1, :] * Z
+    v = A1 - obs[1:2, :] * Z
+    s = u * u + v * v
+    msk = maskf[None, :]
+    if zmode == "pos":
+        zc = torch.clamp(Z, min=1e-9)
+        t0 = zc * zc
+        alive = torch.where(Z > 0, msk, 0.0)
+    elif zmode == "nonzero":
+        t0 = Z * Z
+        alive = torch.where(Z.abs() >= 1e-9, msk, 0.0)
+    else:
+        raise ValueError(f"zmode must be one of {sorted(_ZMODES)}: {zmode!r}")
+    cnt = torch.zeros_like(s)
+    for j in range(jmax - n_rungs + 1, jmax + 1):
+        cnt = cnt + torch.where(s < (thr_sq * 4.0 ** j) * t0, 1.0, 0.0)
+    return (cnt * alive).sum(dim=1)
+
+
+def _ladder_rank_cuda(eflat, xh, obs, maskf, thr_sq, zmode, jmax, n_rungs):
+    dev = eflat.device
+    Hm, M = eflat.shape[0], xh.shape[1]
+    dispatch.check_operand(eflat, "eflat", torch.float32, (Hm, 12), dev)
+    dispatch.check_operand(xh, "xh", torch.float32, (4, M), dev)
+    dispatch.check_operand(obs, "obs", torch.float32, (2, M), dev)
+    dispatch.check_operand(maskf, "maskf", torch.float32, (M,), dev)
+    rank = torch.empty(Hm, dtype=torch.float32, device=dev)
+    _build.launch(
+        "coloc_ransac_rank", eflat.data_ptr(), xh.data_ptr(), obs.data_ptr(),
+        maskf.data_ptr(), rank.data_ptr(), Hm, M, float(thr_sq),
+        jmax - n_rungs + 1, n_rungs, _ZMODES[zmode], dev.index,
+        dispatch.stream_handle(dev))
+    dispatch.count_launch("ransac_rank")
+    return rank
+
+
+def ladder_rank(eflat, xh, obs, maskf, thr_sq: float, zmode: str = "pos",
+                jmax: int = LADDER_JMAX, n_rungs: int = LADDER_RUNGS):
+    """(Hm,) float32 ladder rank per model (higher = better candidate)."""
+    if zmode not in _ZMODES:
+        raise ValueError(f"zmode must be one of {sorted(_ZMODES)}: {zmode!r}")
+    if dispatch.use_kernel(eflat):
+        return _ladder_rank_cuda(eflat.contiguous(), xh.contiguous(),
+                                 obs.contiguous(), maskf.contiguous(),
+                                 thr_sq, zmode, jmax, n_rungs)
+    return ladder_rank_plain(eflat, xh, obs, maskf, thr_sq, zmode, jmax,
+                             n_rungs)
+
+
+def p3p_operands(flats, Xw, bearings, valid, focal):
+    """The rank's operands for P3P models: (eflat (Hm,12), xh (4,M),
+    obs (2,M), maskf (M,)), focal folded into the x/y model rows and the
+    observations (u = f A0 - (f ox) Z)."""
+    Hm = flats.shape[0]
+    R = flats[:, :9].reshape(Hm, 3, 3)
+    C = flats[:, 9:]
+    t = torch.einsum("mkd,md->mk", R, C)                 # (Hm, 3) = R_m C_m
+    E = torch.cat([R, t[:, :, None]], dim=2)             # (Hm, 3, 4)
+    f = torch.as_tensor(focal, dtype=torch.float32, device=flats.device)
+    E = E * torch.stack([f, f, torch.ones_like(f)])[None, :, None]
+    eflat = E.reshape(Hm, 12)
+    obs = bearings[:, :2] / torch.clamp(bearings[:, 2:3], min=1e-9)
+    obs = (obs * f).T                                    # (2, M)
+    xh = torch.cat([Xw, -torch.ones_like(Xw[:, :1])], dim=-1).T   # (4, M)
+    return eflat, xh, obs, valid.to(torch.float32)
+
+
+def p3p_ladder_rank(flats, Xw, bearings, valid, focal, thr_sq: float,
+                    jmax: int = LADDER_JMAX,
+                    n_rungs: int = LADDER_RUNGS) -> torch.Tensor:
+    """flats (Hm,12) R | C, Xw (M,3), bearings (M,3), valid (M,) bool ->
+    (Hm,) float32 ladder rank."""
+    eflat, xh, obs, maskf = p3p_operands(flats, Xw, bearings, valid, focal)
+    return ladder_rank(eflat, xh, obs, maskf, thr_sq, "pos", jmax, n_rungs)

@@ -1,0 +1,105 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Each test needs a CUDA device and skips without one (the kernels have no
+CPU or interpret mode). This file imports neither jax nor coloc_tpu, so it
+runs where jax is absent; there, skip the repo's jax conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from coloc_tpu_torch import convert
+from coloc_tpu_torch.geometry import camera as cam_ops
+from coloc_tpu_torch.geometry import p3p
+from coloc_tpu_torch.io import synthetic
+from coloc_tpu_torch.ops import dispatch, hamming, ransac_rank
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _desc(rng, n):
+    return torch.from_numpy(
+        rng.integers(0, 2 ** 32, (n, 16), dtype=np.uint64).astype(np.uint32)
+        .view(np.int32).copy())
+
+
+@pytest.mark.parametrize("Q,T", [(1, 1), (33, 300), (1024, 4096), (1000, 4200)])
+def test_k2nn_kernel_equals_plain(dev, Q, T):
+    rng = np.random.default_rng(Q + T)
+    t = _desc(rng, T)
+    q = t[torch.from_numpy(rng.integers(0, T, Q))].clone()
+    q[Q // 2:] = _desc(rng, Q - Q // 2)            # half exact hits, half random
+    if T > 300:
+        t[T - 1] = t[7]                              # a duplicate in another tile
+        q[0] = t[7]
+    t_valid = torch.from_numpy(rng.random(T) > 0.1)
+    q_valid = torch.from_numpy(rng.random(Q) > 0.05)
+    bank = hamming.pack_bank(t.to(dev), t_valid.to(dev))
+    before = dispatch.launch_counts()["k2nn"]
+    got = hamming.hamming_2nn_bank(q.to(dev), q_valid.to(dev), bank)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["k2nn"] == before + 1
+    want = hamming.hamming_2nn_plain(q, q_valid, hamming.pack_bank(t, t_valid))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_k2nn_kernel_all_invalid_bank(dev):
+    rng = np.random.default_rng(1)
+    bank = hamming.pack_bank(_desc(rng, 100).to(dev),
+                             torch.zeros(100, dtype=torch.bool, device=dev))
+    idx, best, second = hamming.hamming_2nn_bank(
+        _desc(rng, 8).to(dev), torch.ones(8, dtype=torch.bool, device=dev), bank)
+    assert (idx == -1).all() and (best == 2048).all() and (second == 2048).all()
+
+
+def _samples(rng, B):
+    fa = synthetic.random_features(480, 752, 1024, rng)
+    K = np.array([[451.2, 0, 376], [0, 451.2, 240], [0, 0, 1]], np.float32)
+    ma = synthetic.consistent_mapdb(fa, K, 1024, rng)
+    cam = convert.camera_from_numpy(K)
+    b = cam_ops.bearing(cam, torch.from_numpy(fa.xy))
+    idx = torch.from_numpy(np.stack([rng.choice(1024, 3, replace=False)
+                                     for _ in range(B)]))
+    return torch.from_numpy(ma.X)[idx], b[idx]
+
+
+@pytest.mark.parametrize("B", [1, 256, 1000])
+def test_p3p_kernel_equals_plain(dev, B):
+    Xs, bs = _samples(np.random.default_rng(B), B)
+    fk, vk = p3p.p3p_flats_batch(Xs.to(dev), bs.to(dev))
+    fp, vp = p3p.p3p_flats_plain(Xs.to(dev), bs.to(dev))
+    torch.cuda.synchronize()
+    assert float((vk == vp).all(dim=1).float().mean()) >= 0.99
+    both = vk & vp
+    rel = (fk - fp).abs()[both] / (1.0 + fp.abs()[both])
+    assert float(rel.max()) <= 1e-4
+
+
+@pytest.mark.parametrize("zmode", ["pos", "nonzero"])
+@pytest.mark.parametrize("Hm,M", [(1, 5), (300, 257), (1024, 1024)])
+def test_rank_kernel_equals_plain(dev, zmode, Hm, M):
+    rng = np.random.default_rng(Hm + M)
+    Xs, bs = _samples(rng, max(Hm // 4, 1))
+    flats, _ = p3p.p3p_flats_plain(Xs, bs)
+    flats = flats.reshape(-1, 12)[:Hm]
+    X = torch.from_numpy(rng.uniform(-3, 3, (M, 3)).astype(np.float32)) + torch.tensor([0, 0, 8.0])
+    b = torch.nn.functional.normalize(X + torch.from_numpy(rng.normal(0, 0.01, (M, 3)).astype(np.float32)), dim=-1)
+    valid = torch.from_numpy(rng.random(M) > 0.2)
+    ops = [t.to(dev) for t in ransac_rank.p3p_operands(flats, X, b, valid, 451.2)]
+    got = ransac_rank.ladder_rank(*ops, 16.0, zmode)
+    want = ransac_rank.ladder_rank_plain(*ops, 16.0, zmode)
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    assert float((d == 0).float().mean()) >= 0.999
+    assert float(d.max()) <= 2.0
