@@ -3,18 +3,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's headline op, match+localize (resident-bank Hamming 2-NN,
-P3P AC-RANSAC, pose-only LM), at the reference workload: a 752x480 camera,
-1024 keypoints, a 4096-landmark map, 256 hypotheses, NFA scoring. Phases:
+Drives the port's paths at the reference workload (a 752x480 camera, an
+8-level 1.2x pyramid, 1024 keypoints, a 4096-landmark map, 256
+hypotheses, NFA scoring): the headline match+localize op, the full-frame
+op (camera frame in, pose out) and the session's D=2 frame step. Phases:
 
   1. device   — a CUDA device is required (there is no CPU path)
   2. build    — nvcc builds the kernels from coloc_tpu_torch/csrc
   3. kernels  — each kernel against its plain PyTorch twin on the card, at
                 the shapes of the main path, with kernel and plain times
-  4. slice    — FRAMES frames through match_with_map + localize_image,
-                checked against the identity ground truth, plus frame 0
-                through the plain CPU path with the same RANSAC draws
-  5. counters — every kernel of the path launched during phase 4
+  4. slice    — FRAMES frames through match_with_map + localize_image on
+                random features, checked against the identity ground
+                truth, plus frame 0 through the plain CPU path with the
+                same RANSAC draws
+  4b frame    — FULL_FRAMES rendered frames through detect_and_describe +
+                match_with_map + localize_image, stage times by CUDA
+                events, and the frame's features on the card against the
+                plain CPU path
+  4c step     — STEPS session steps (intra_all_device_step) for 2 drones
+                with the Kalman bank
+  5. counters — every kernel of each path launched during its phase
 
 Any failed check raises and the script exits non-zero. The last two lines
 of stdout are one JSON object per kernel and the run's result line.
@@ -32,6 +40,10 @@ SEED = 0
 H, W, KP, LANDMARKS = 480, 752, 1024, 4096
 OUTLIER_FRAC = 0.25
 FRAMES = 50
+# the full-frame op: the bench scene (make_scene seed 1) at identity
+LEVELS, FAST_THRESHOLD, SCENE_SEED = 8, 12, 1
+FULL_FRAMES, STAGED_FRAMES, PROFILED_FRAMES = 30, 10, 3
+STEP_DRONES, STEPS = 2, 12
 WARMUP, ITERS = 10, 100
 
 KERNEL_INFO = {
@@ -39,6 +51,14 @@ KERNEL_INFO = {
     "p3p": ("coloc_tpu_torch/csrc/p3p.cu", "coloc_tpu/geometry/p3p.py:243"),
     "ransac_rank": ("coloc_tpu_torch/csrc/ransac_rank.cu",
                     "coloc_tpu/ops/ransac_rank.py:78"),
+    "fast_nms": ("coloc_tpu_torch/csrc/fast_nms.cu", "coloc_tpu/ops/fast.py:182"),
+    "extract": ("coloc_tpu_torch/csrc/extract.cu", "coloc_tpu/ops/patches.py:152"),
+}
+# the kernels each driven path must launch
+PATH_KERNELS = {
+    "4 slice": ("k2nn", "p3p", "ransac_rank"),
+    "4b frame": KERNEL_INFO.keys(),
+    "4c step": KERNEL_INFO.keys(),
 }
 
 
@@ -67,6 +87,45 @@ def cuda_ms(fn, warmup: int = WARMUP, iters: int = ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
+def percentiles(np, ms):
+    return f"p50 {np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms"
+
+
+def pose_errors(torch, R, C):
+    """Rotation (rad) and centre (m) error against the identity pose."""
+    eye = torch.eye(3, device=R.device)
+    rot = float(torch.arccos(torch.clamp((torch.trace(R.T @ eye) - 1.0) / 2.0,
+                                         -1.0, 1.0)))
+    return rot, float(torch.linalg.norm(C))
+
+
+def shared_features(np, a, b):
+    """Share of a's valid keypoints that b has too (same level, xy within
+    1e-3 px), and the share of equal descriptor bits over those pairs."""
+    av, bv = a.valid, b.valid
+    axy, bxy = a.xy[av], b.xy[bv]
+    d = np.abs(axy[:, None, :] - bxy[None, :, :]).max(-1)
+    d = np.where(a.scale[av][:, None] == b.scale[bv][None, :], d, np.inf)
+    pair = d.argmin(axis=1)
+    shared = d[np.arange(len(axy)), pair] <= 1e-3
+    bits = [np.unpackbits(np.ascontiguousarray(x).view(np.uint8), axis=-1)
+            for x in (a.desc[av][shared], b.desc[bv][pair[shared]])]
+    return float(shared.mean()), float((bits[0] == bits[1]).mean())
+
+
+def bench_scene(np, K):
+    """The bench frame (make_scene(480, 752, K, seed=1) rendered at
+    identity) and a second view of the same scene."""
+    from coloc_tpu_torch.io import synthetic
+
+    scene = synthetic.make_scene(H, W, K, seed=SCENE_SEED)
+    frame = synthetic.render(scene, np.eye(3, dtype=np.float32),
+                             np.zeros(3, np.float32)).astype(np.float32)
+    Rs, Cs = synthetic.trajectory(30, 0)
+    second = synthetic.render(scene, Rs[10], Cs[10]).astype(np.float32)
+    return frame, second
+
+
 def workload(np, rng):
     """Random features + a consistent map with OUTLIER_FRAC of the matched
     landmarks moved to random far points (numpy, the reference layout)."""
@@ -93,13 +152,17 @@ def main() -> int:
     import numpy as np
 
     import coloc_tpu_torch
-    from coloc_tpu_torch import config, convert
+    from coloc_tpu_torch import config, convert, frontend, session
+    from coloc_tpu_torch.fusion import kalman
     from coloc_tpu_torch.geometry import camera as cam_ops
     from coloc_tpu_torch.geometry import p3p
+    from coloc_tpu_torch.io import synthetic
     from coloc_tpu_torch.matching import match_with_map, pack_map_bank
-    from coloc_tpu_torch.ops import _build, dispatch, hamming, ransac_rank
+    from coloc_tpu_torch.ops import (_build, dispatch, fast, hamming, patches,
+                                     pyramid, ransac_rank)
     from coloc_tpu_torch.ransac import sample_indices
     from coloc_tpu_torch.sfm.localize import localize_image
+    from coloc_tpu_torch.types import Features
 
     # the port must come from this checkout, so its kernels build from here
     pkg = Path(coloc_tpu_torch.__file__).resolve().parent
@@ -205,13 +268,70 @@ def main() -> int:
         max_abs_err=rank_err,
         ms=cuda_ms(lambda: ransac_rank._ladder_rank_cuda(*ops, thr_sq, "pos", 2, 5)),
         plain_ms=cuda_ms(lambda: ransac_rank.ladder_rank_plain(*ops, thr_sq, "pos")))
+
+    # B4: the D=2 stacked raw raster of the bench scene (two views), with a
+    # planted plateau of equal scores: bright squares on black, whose
+    # corners and edges score exactly 255
+    frame, second = bench_scene(np, K)
+    opts = config.DetectorOptions(width=W, height=H, max_keypoints=KP,
+                                  num_levels=LEVELS, fast_threshold=FAST_THRESHOLD)
+    views = torch.from_numpy(np.stack([frame, second])).to(dev)
+    levels = pyramid.build_pyramid_batch(views, LEVELS, opts.scale_factor)
+    raster = patches.stack_levels_batch(levels).stacked.clone()
+    raster[40:100, 40:400] = 0.0
+    for y0 in range(44, 92, 12):
+        for x0 in range(44, 392, 12):
+            raster[y0:y0 + 5, x0:x0 + 5] = 255.0
+    rk, nk = fast._fast_nms_cuda(raster, FAST_THRESHOLD)
+    rp, nmp = fast.fast_nms_plain(raster, FAST_THRESHOLD)
+    torch.cuda.synchronize()
+    err = max(float((rk - rp).abs().max()), float((nk - nmp).abs().max()))
+    check(torch.equal(rk, rp) and torch.equal(nk, nmp),
+          f"fast_nms differs from its plain twin (max |diff| {err})")
+    ties = int(((rk[:, 1:] == rk[:, :-1]) & (rk[:, 1:] == 255.0)).sum())
+    check(ties > 0, "fast_nms: the planted plateau has no equal neighbours")
+    print(f"[3 fast_nms] raster {tuple(raster.shape)}: raw and nms bit-equal; "
+          f"{int((rk > 0).sum())} corners, {int((nk > 0).sum())} kept, "
+          f"{ties} equal neighbour pairs on the plateau")
+    results["fast_nms"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: fast._fast_nms_cuda(raster, FAST_THRESHOLD)),
+        plain_ms=cuda_ms(lambda: fast.fast_nms_plain(raster, FAST_THRESHOLD)))
+
+    # B5: the windows of the two views' detected keypoints, plus origins at
+    # the raster's last rows and columns (and unaligned ones to round)
+    fv = frontend.detect_and_describe_batch(views, opts)
+    sps = patches.stack_levels_batch(
+        [pyramid.box_blur(l, opts.smoothing_radius) for l in levels])
+    lvl = fv.scale.reshape(-1).long()
+    scale = torch.pow(torch.tensor(opts.scale_factor, device=dev), lvl.float())
+    row0, col0 = patches.patch_origins(sps, fv.xy[..., 0].reshape(-1) / scale,
+                                       fv.xy[..., 1].reshape(-1) / scale, lvl)
+    row0 = row0 + (torch.arange(2, device=dev).repeat_interleave(KP)
+                   * sps.img_rows).int()
+    R_all, WP = sps.stacked.shape
+    PH, PW = patches.PH, patches.PW
+    row0 = torch.cat([row0, torch.tensor([R_all - PH, R_all - PH, 0, R_all - PH - 3,
+                                          R_all], device=dev, dtype=torch.int32)])
+    col0 = torch.cat([col0, torch.tensor([WP - PW, 0, WP - PW, WP - PW + 5, 1],
+                                         device=dev, dtype=torch.int32)])
+    pk = patches._extract_patches_cuda(sps.stacked, row0, col0)
+    pp = patches.extract_patches_plain(sps.stacked, row0, col0)
+    torch.cuda.synchronize()
+    err = float((pk - pp).abs().max())
+    check(torch.equal(pk, pp), f"extract differs from its plain twin (max |diff| {err})")
+    print(f"[3 extract] {row0.numel()} windows of {tuple(sps.stacked.shape)}: bit-equal")
+    results["extract"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: patches._extract_patches_cuda(sps.stacked, row0, col0)),
+        plain_ms=cuda_ms(lambda: patches.extract_patches_plain(sps.stacked, row0, col0)))
+    del rk, nk, rp, nmp, pk, pp
     for name, r in results.items():
         print(f"[3 {name}] kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"max |err| {r['max_abs_err']:.3e}  ({card})")
 
     # ---- phase 4: the slice end to end ----------------------------------
     bank = pack_map_bank(mapdb)
-    eye = torch.eye(3, device=dev)
     lat_ms = []
     dispatch.reset_launch_counts()
     for f in range(FRAMES):
@@ -225,10 +345,7 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         lat_ms.append(start.elapsed_time(end))
-        R, C = pwc.pose.R, pwc.pose.C
-        rot_err = float(torch.arccos(torch.clamp(
-            (torch.trace(R.T @ eye) - 1.0) / 2.0, -1.0, 1.0)))
-        c_err = float(torch.linalg.norm(C))
+        rot_err, c_err = pose_errors(torch, pwc.pose.R, pwc.pose.C)
         n = int(pwc.n_tracks)
         check(bool(pwc.success), f"frame {f}: localization failed")
         check(700 <= n <= 800, f"frame {f}: n_tracks {n} outside [700, 800]")
@@ -237,12 +354,11 @@ def main() -> int:
         check(bool(torch.isfinite(pwc.cov).all()) and pwc.cov.shape == (6, 6),
               f"frame {f}: covariance not finite (6, 6)")
         check(not bool(inl[:n_out].any()), f"frame {f}: a moved landmark is an inlier")
-    counts = dispatch.launch_counts()
+    counts = {"4 slice": dispatch.launch_counts()}
     # frame 0 pays the one-time set-up of the ops it is first to run
     steady = np.asarray(lat_ms[1:])
     print(f"[4 slice] {FRAMES} frames ok; per-frame latency after frame 0: "
-          f"p50 {np.percentile(steady, 50):.3f} ms, p99 "
-          f"{np.percentile(steady, 99):.3f} ms; frame 0 {lat_ms[0]:.3f} ms  ({card})")
+          f"{percentiles(np, steady)}; frame 0 {lat_ms[0]:.3f} ms  ({card})")
 
     # frame 0 again, on the card and through the plain CPU path, with the
     # same RANSAC draws: the two paths must agree
@@ -269,14 +385,164 @@ def main() -> int:
     print(f"[4 reference] frame 0 card vs CPU plain path: n_tracks "
           f"{int(pg.n_tracks)} / {int(pc.n_tracks)}, |dR| {dR:.2e}, |dC| {dC:.2e}")
 
-    # ---- phase 5: the main path went through every kernel --------------
-    print(f"[5 counters] launches during phase 4: {counts}")
-    for name in dispatch.KERNELS:
-        check(counts[name] > 0, f"kernel {name} was never launched in phase 4")
+    # ---- phase 4b: the full-frame op, camera frame in, pose out ---------
+    frame_t = torch.from_numpy(frame).to(dev)
+    feats0 = frontend.detect_and_describe(frame_t, opts)
+    f0 = convert.to_numpy(feats0)
+    n_valid = int(f0.valid.sum())
+    check(n_valid >= 1000, f"frame: {n_valid} valid keypoints < 1000")
+    rng = np.random.default_rng(SEED)
+    ma_f = synthetic.consistent_mapdb(f0, K, LANDMARKS, rng)
+    X = ma_f.X.copy()
+    X[:n_out] = rng.uniform(-50.0, 50.0, (n_out, 3)).astype(np.float32)
+    mapdb_f = convert.mapdb_from_numpy(ma_f._replace(X=X), dev)
+    bank_f = pack_map_bank(mapdb_f)
+
+    def check_pose(tag, pwc, mm, inl):
+        rot_err, c_err = pose_errors(torch, pwc.pose.R, pwc.pose.C)
+        check(bool(pwc.success), f"{tag}: localization failed")
+        check(rot_err < 1e-3, f"{tag}: rotation error {rot_err:.3e} rad")
+        check(c_err < 1e-2, f"{tag}: center error {c_err:.3e} m")
+        check(not bool((inl & mm.mask & (mm.idx < n_out)).any()),
+              f"{tag}: a moved landmark is an inlier")
+
+    def full_frame(f, mark=None):
+        gen = torch.Generator(device=dev).manual_seed(2000 + f)
+        if mark is None:
+            feats = frontend.detect_and_describe(frame_t, opts)
+        else:
+            feats = Features(*(a[0] for a in frontend._detect_and_describe_trip_batch(
+                frame_t[None], opts, mark)))
+        mm = match_with_map(feats, mapdb_f, cfg.matcher, bank=bank_f)
+        if mark is not None:
+            mark("match")
+        pwc, inl = localize_image(feats, mm, mapdb_f, cam, cfg.ransac,
+                                  cfg.refiner, generator=gen)
+        if mark is not None:
+            mark("localize")
+        return feats, mm, pwc, inl
+
+    lat_ms, tracks = [], []
+    dispatch.reset_launch_counts()
+    for f in range(FULL_FRAMES + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        feats, mm, pwc, inl = full_frame(f)
+        end.record()
+        torch.cuda.synchronize()
+        lat_ms.append(start.elapsed_time(end))
+        check_pose(f"full frame {f}", pwc, mm, inl)
+        check(int(feats.valid.sum()) >= 1000, f"full frame {f}: < 1000 keypoints")
+        tracks.append(int(pwc.n_tracks))
+        check(700 <= tracks[-1] <= 800,
+              f"full frame {f}: n_tracks {tracks[-1]} outside [700, 800]")
+    counts["4b frame"] = dispatch.launch_counts()
+    per_frame = {k: v / (FULL_FRAMES + 1) for k, v in counts["4b frame"].items()}
+    print(f"[4b frame] {FULL_FRAMES + 1} frames ok ({n_valid} keypoints, n_tracks "
+          f"{min(tracks)}-{max(tracks)}); latency after frame 0: "
+          f"{percentiles(np, lat_ms[1:])}; frame 0 {lat_ms[0]:.3f} ms  ({card})")
+    print(f"[4b frame] kernel launches a frame: {per_frame}")
+
+    stage_ms = {}
+    for f in range(STAGED_FRAMES):
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        full_frame(100 + f, mark)
+        torch.cuda.synchronize()
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            stage_ms.setdefault(name, []).append(a.elapsed_time(b))
+    print(f"[4b stages] p50 over {STAGED_FRAMES} frames, CUDA events: " + ", ".join(
+        f"{k} {np.percentile(v, 50):.3f}" for k, v in stage_ms.items())
+        + f" ms; sum {sum(np.percentile(v, 50) for v in stage_ms.values()):.3f} ms")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in range(PROFILED_FRAMES):
+            full_frame(200 + f)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if busy_us > 0:
+        print(f"[4b profile] {len(kernels) / PROFILED_FRAMES:.0f} device kernels a "
+              f"frame, device busy {busy_us / PROFILED_FRAMES / 1e3:.3f} ms of "
+              f"{wall_us / PROFILED_FRAMES / 1e3:.3f} ms a frame "
+              f"({100.0 - 100.0 * busy_us / wall_us:.1f}% idle, profiler on)")
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print("[4b profile] device us a frame, largest kernels: " + "; ".join(
+            f"{us / PROFILED_FRAMES:.1f} {name[:60]}" for name, us in top))
+    else:
+        print("[4b profile] the profiler saw no device time: not measured")
+
+    # the same image through the port's plain CPU path
+    fc = convert.to_numpy(frontend.detect_and_describe(torch.from_numpy(frame), opts))
+    shared, bits = shared_features(np, f0, fc)
+    print(f"[4b reference] card vs CPU plain path: {shared:.4f} of keypoints "
+          f"shared, {bits:.4f} of descriptor bits equal on them")
+    check(shared >= 0.98, f"card vs CPU: {shared:.4f} of keypoints shared < 0.98")
+    check(bits >= 0.99, f"card vs CPU: {bits:.4f} of bits equal < 0.99")
+
+    # ---- phase 4c: the session's frame step, 2 drones -------------------
+    cfg_s = config.ColocConfig(num_drones=STEP_DRONES, detector=opts)
+    imgs = torch.from_numpy(np.stack([frame] * STEP_DRONES)).to(dev)
+    Ks = torch.from_numpy(np.stack([K] * STEP_DRONES)).to(dev)
+    dists = torch.zeros((STEP_DRONES, 3), device=dev)
+    fb = kalman.init(STEP_DRONES, cfg_s.filter, dev)
+    accepted = torch.zeros(STEP_DRONES, dtype=torch.int32)
+    step_ms = []
+    dispatch.reset_launch_counts()
+    for s in range(STEPS + 1):
+        gens = [torch.Generator(device=dev).manual_seed(3000 + STEP_DRONES * s + d)
+                for d in range(STEP_DRONES)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pwcs, fb, filt, gate, rej, eul, sup = session.intra_all_device_step(
+            cfg_s, imgs, mapdb_f, bank_f, Ks, dists, fb, generators=gens)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        for d in range(STEP_DRONES):
+            rot_err, c_err = pose_errors(torch, pwcs.pose.R[d], pwcs.pose.C[d])
+            check(bool(pwcs.success[d]), f"step {s} drone {d}: localization failed")
+            check(rot_err < 1e-3 and c_err < 1e-2,
+                  f"step {s} drone {d}: pose error {rot_err:.3e} rad, {c_err:.3e} m")
+        check(bool(torch.isfinite(filt.R).all() & torch.isfinite(filt.C).all()),
+              f"step {s}: filtered pose not finite")
+        accepted += (pwcs.success & ~rej).int().cpu()
+        check(torch.equal(fb.steps.cpu(), accepted),
+              f"step {s}: filter steps {fb.steps.tolist()} != accepted {accepted.tolist()}")
+        check(not bool(sup[:n_out].any()) and int(sup.sum()) > 0,
+              f"step {s}: landmark support counts")
+    counts["4c step"] = dispatch.launch_counts()
+    print(f"[4c step] {STEPS + 1} steps of {STEP_DRONES} drones ok; filter steps "
+          f"{fb.steps.tolist()}, filtered C {[round(v, 5) for v in filt.C.flatten().tolist()]}; "
+          f"latency after step 0: {percentiles(np, step_ms[1:])}; step 0 "
+          f"{step_ms[0]:.3f} ms  ({card})")
+
+    # ---- phase 5: each path went through its kernels -------------------
+    for phase, names in PATH_KERNELS.items():
+        print(f"[5 counters] launches during phase {phase}: {counts[phase]}")
+        for name in names:
+            check(counts[phase][name] > 0,
+                  f"kernel {name} was never launched in phase {phase}")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-         "replaces": KERNEL_INFO[name][1], "launches": counts[name],
+         "replaces": KERNEL_INFO[name][1], "launches": counts["4b frame"][name],
          "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
          "plain_ms": results[name]["plain_ms"]}
         for name in dispatch.KERNELS]}))

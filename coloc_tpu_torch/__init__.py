@@ -9,15 +9,21 @@ Idiom: plain functions on tensors, NamedTuples of tensors for the data model
 `device` where a function creates tensors, and an explicit torch.Generator
 for RANSAC sampling.
 
-Ported so far (the headline match+localize op):
+Ported so far (match+localize, the TRIP frontend, the session's frame step):
   config, types, convert   — options, data model, numpy <-> tensor
   ops/dispatch, ops/_build — device dispatch + launch counters, nvcc build
   ops/hamming              — resident-bank 2-NN (kernel csrc/k2nn.cu)
   matching                 — margin / ratio accept, match_with_map
-  geometry/{so3,camera,p3p}— P3P flats (kernel csrc/p3p.cu)
+  geometry/{so3,camera,p3p}— P3P flats (kernel csrc/p3p.cu), Euler maps
   ransac, ops/ransac_rank  — NFA RANSAC, ladder pre-rank (csrc/ransac_rank.cu)
   robust, sfm/{ba,localize}— absolute_pose_p3p, refine_pose_only, localize_image
-  io/synthetic             — numpy-only workload generator
+  ops/{pyramid,orientation,descriptor}
+                           — pyramid + blur, intensity-centroid angle, TRIP-512
+  ops/fast                 — FAST-9 + NMS (kernel csrc/fast_nms.cu), top-k
+  ops/patches              — stacked raster, patch windows (csrc/extract.cu)
+  frontend                 — detect_and_describe(_batch), TRIP backend
+  fusion/kalman, session   — Kalman bank, intra_all_device_step
+  io/synthetic             — numpy-only scene renderer and workload generator
 """
 
 __version__ = "0.1.0"

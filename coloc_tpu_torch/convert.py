@@ -1,7 +1,8 @@
 """numpy <-> port state.
 
-The reference's state (Features, MapDB, Camera), taken out of JAX as numpy
-arrays, becomes the port's state here and back. Descriptors cross as a
+The reference's state (Features, MapDB, Camera, FilterBank), taken out of
+JAX as numpy arrays, becomes the port's state here and back. Descriptors
+cross as a
 bit-preserving view: uint32 in coloc_tpu, int32 in the port (types.py).
 Inputs are any object with the reference's field names whose fields
 np.asarray accepts, so a coloc_tpu NamedTuple can be passed as it is.
@@ -14,6 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from coloc_tpu_torch.fusion.kalman import FilterBank
 from coloc_tpu_torch.geometry.camera import Camera
 from coloc_tpu_torch.types import Features, MapDB
 
@@ -49,6 +51,14 @@ def mapdb_from_numpy(mapdb: Any, device="cpu") -> MapDB:
 def camera_from_numpy(K, dist=None, device="cpu") -> Camera:
     dist = np.zeros(3, np.float32) if dist is None else dist
     return Camera(K=_f32(K, device), dist=_f32(dist, device))
+
+
+def filter_bank_from_numpy(fb: Any, device="cpu") -> FilterBank:
+    return FilterBank(
+        x=_f32(fb.x, device),
+        P=_f32(fb.P, device),
+        steps=torch.tensor(np.asarray(fb.steps, np.int32), device=device),
+    )
 
 
 def to_numpy(x: Any) -> Any:

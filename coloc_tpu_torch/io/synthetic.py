@@ -1,5 +1,12 @@
-"""Synthetic workload made with numpy (counterpart of consistent_mapdb in
-coloc_tpu.io.synthetic, plus a frontend-free feature generator).
+"""Synthetic workload made with numpy (counterpart of coloc_tpu.io.synthetic,
+plus a frontend-free feature generator).
+
+The scene generator (smooth_texture, make_scene, render, trajectory)
+makes camera frames with known poses: textured planes (a fenestrated near
+plane over a far plane) rendered with exact projective warps. Same rng
+call order and sample positions as coloc_tpu's, so one seed gives the
+same frames in both packages (to float32 rounding). write_dataset (PNG
+sequences on disk) is not ported.
 
 Arrays come out in the reference's layout (uint32 descriptors);
 convert.features_from_numpy / mapdb_from_numpy make the port's tensors.
@@ -7,11 +14,119 @@ convert.features_from_numpy / mapdb_from_numpy make the port's tensors.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
+import torch
 
+from coloc_tpu_torch.geometry import so3
+from coloc_tpu_torch.ops.pyramid import _resize_matrix
 from coloc_tpu_torch.types import DESC_WORDS
+
+
+class SyntheticScene(NamedTuple):
+    textures: List[np.ndarray]   # per-plane texture (H, W)
+    alphas: List[np.ndarray]     # per-plane visibility mask (H, W)
+    depths: List[float]          # plane depths (z = const in world frame)
+    K: np.ndarray                # (3, 3)
+
+
+def smooth_texture(h: int, w: int, rng: np.random.Generator) -> np.ndarray:
+    """Multi-octave value-noise texture with FAST-detectable structure. The
+    bilinear upsampling is jax.image.resize(method="linear")'s: for an
+    upsample its sample positions are pyramid._resize_matrix's."""
+    img = np.zeros((h, w), np.float32)
+    for cell, amp in [(8, 120.0), (16, 80.0), (32, 60.0)]:
+        c = rng.uniform(0, 1, (h // cell + 2, w // cell + 2)).astype(np.float32)
+        up = (_resize_matrix(c.shape[0], h + cell) @ c
+              @ _resize_matrix(c.shape[1], w + cell).T)
+        img += amp * up[:h, :w]
+    img -= img.min()
+    img *= 255.0 / max(img.max(), 1e-6)
+    return img
+
+
+def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """jax.image.resize(method="nearest")'s source index per output index:
+    floor((i + 0.5) * n_in / n_out), computed in float32 as jax does."""
+    pos = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * np.float32(n_in)
+    return np.floor(pos / np.float32(n_out)).astype(np.int64)
+
+
+def make_scene(
+    height: int, width: int, K: np.ndarray, seed: int = 0,
+    depths: Tuple[float, float] = (6.0, 12.0), near_coverage: float = 0.45,
+) -> SyntheticScene:
+    rng = np.random.default_rng(seed)
+    tex = [smooth_texture(height, width, rng) for _ in depths]
+    mask_coarse = (rng.uniform(0, 1, (6, 8)) < near_coverage).astype(np.float32)
+    near_alpha = mask_coarse[_nearest_index(6, height)[:, None],
+                             _nearest_index(8, width)[None, :]]
+    alphas = [near_alpha] + [np.ones((height, width), np.float32)] * (len(depths) - 1)
+    return SyntheticScene(textures=tex, alphas=alphas, depths=list(depths),
+                          K=np.asarray(K, np.float32))
+
+
+def _bilinear(img, x, y):
+    h, w = img.shape
+    x = np.clip(x, 0, w - 1.001)
+    y = np.clip(y, 0, h - 1.001)
+    x0 = np.floor(x).astype(int)
+    y0 = np.floor(y).astype(int)
+    fx, fy = x - x0, y - y0
+    return (
+        img[y0, x0] * (1 - fx) * (1 - fy)
+        + img[y0, x0 + 1] * fx * (1 - fy)
+        + img[y0 + 1, x0] * (1 - fx) * fy
+        + img[y0 + 1, x0 + 1] * fx * fy
+    )
+
+
+def render(scene: SyntheticScene, R: np.ndarray, C: np.ndarray) -> np.ndarray:
+    """Render the scene from pose (R, C); z-buffered over the planes."""
+    K = scene.K
+    h, w = scene.textures[0].shape
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    pts = np.stack([xx.ravel(), yy.ravel(), np.ones(h * w, np.float32)])
+    img = np.zeros(h * w, np.float32)
+    best_z = np.full(h * w, 1e9, np.float32)
+    n = np.array([0, 0, 1.0])
+    t = -R @ C
+    Kinv = np.linalg.inv(K)
+    for tex, alpha, Z in zip(scene.textures, scene.alphas, scene.depths):
+        Hm = K @ (R + np.outer(t, n) / Z) @ Kinv   # plane homography view1->this
+        Hinv = np.linalg.inv(Hm)
+        src = Hinv @ pts
+        s = src[:2] / src[2]
+        w1 = Kinv @ np.vstack([s, np.ones(h * w)]) * Z
+        zc = (R @ (w1 - C[:, None]))[2]
+        a = _bilinear(alpha, np.clip(s[0], 0, w - 1.01), np.clip(s[1], 0, h - 1.01))
+        vis = (
+            (s[0] >= 0) & (s[0] < w - 1) & (s[1] >= 0) & (s[1] < h - 1)
+            & (zc > 0) & (zc < best_z) & (a > 0.5)
+        )
+        vals = _bilinear(tex, s[0], s[1])
+        img = np.where(vis, vals, img)
+        best_z = np.where(vis, zc, best_z)
+    return img.reshape(h, w)
+
+
+def trajectory(num_frames: int, drone: int, seed: int = 7):
+    """Smooth per-drone ground-truth trajectory: (R (F,3,3), C (F,3))."""
+    base = np.array([0.6 * drone, 0.1 * drone, 0.0], np.float32)
+    Rs, Cs = [], []
+    for f in range(num_frames):
+        tpar = f / max(num_frames - 1, 1)
+        w = np.array([
+            0.02 * np.sin(2 * np.pi * tpar + drone),
+            -0.05 * tpar,
+            0.01 * np.cos(2 * np.pi * tpar),
+        ], np.float32)
+        C = base + np.array([0.5 * tpar, 0.1 * np.sin(2 * np.pi * tpar), 0.05 * tpar],
+                            np.float32)
+        Rs.append(so3.exp(torch.from_numpy(w)).numpy())
+        Cs.append(C)
+    return np.stack(Rs), np.stack(Cs)
 
 
 class FeaturesArrays(NamedTuple):

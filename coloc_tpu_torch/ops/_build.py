@@ -44,6 +44,8 @@ _SIGNATURES = {
     "coloc_k2nn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "coloc_p3p": [_P, _P, _P, _P, _I, _I, _P],
     "coloc_ransac_rank": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P],
+    "coloc_fast_nms": [_P, _P, _P, _I, _I, _F, _I, _P],
+    "coloc_extract": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -17,7 +17,7 @@ from typing import Dict
 
 import torch
 
-KERNELS = ("k2nn", "p3p", "ransac_rank")
+KERNELS = ("k2nn", "p3p", "ransac_rank", "fast_nms", "extract")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 

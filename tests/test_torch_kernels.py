@@ -15,7 +15,7 @@ from coloc_tpu_torch import convert
 from coloc_tpu_torch.geometry import camera as cam_ops
 from coloc_tpu_torch.geometry import p3p
 from coloc_tpu_torch.io import synthetic
-from coloc_tpu_torch.ops import dispatch, hamming, ransac_rank
+from coloc_tpu_torch.ops import dispatch, fast, hamming, patches, ransac_rank
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +103,51 @@ def test_rank_kernel_equals_plain(dev, zmode, Hm, M):
     d = (got - want).abs()
     assert float((d == 0).float().mean()) >= 0.999
     assert float(d.max()) <= 2.0
+
+
+def _fast_input(kind, h, w, rng):
+    if kind == "zeros":
+        return torch.zeros(h, w)
+    if kind == "ties":
+        # every pixel scores the same where it scores: a checkerboard of
+        # 0 / 255 gives equal arcs everywhere
+        yy, xx = np.mgrid[0:h, 0:w]
+        return torch.from_numpy(((yy + xx) % 2 * 255.0).astype(np.float32))
+    img = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    img[4:40, 4:100] = 0.0
+    img[10:30:8, 10:90:8] = 255.0                    # isolated plateaus
+    return torch.from_numpy(img)
+
+
+@pytest.mark.parametrize("kind,h,w", [("random", 32, 32), ("random", 97, 131),
+                                      ("random", 4464, 768), ("zeros", 64, 64),
+                                      ("ties", 70, 45), ("random", 5, 7)])
+def test_fast_nms_kernel_equals_plain(dev, kind, h, w):
+    img = _fast_input(kind, h, w, np.random.default_rng(h * w))
+    before = dispatch.launch_counts()["fast_nms"]
+    raw, nms = fast.fast_nms(img.to(dev), 12.0)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["fast_nms"] == before + 1
+    want_raw, want_nms = fast.fast_nms_plain(img, 12.0)
+    assert torch.equal(raw.cpu(), want_raw)
+    assert torch.equal(nms.cpu(), want_nms)
+
+
+@pytest.mark.parametrize("K", [1, 33, 2048])
+def test_extract_kernel_equals_plain(dev, K):
+    rng = np.random.default_rng(K)
+    R, WP = 2232, 768
+    src = torch.from_numpy(rng.uniform(0, 255, (R, WP)).astype(np.float32))
+    row0 = rng.integers(0, R - patches.PH + 1, K)
+    col0 = rng.integers(0, WP - patches.PW + 1, K)
+    if K > 1:
+        # the last rows and columns, unaligned and out-of-range origins
+        row0[:6] = [R - patches.PH, R - patches.PH, 0, R - patches.PH - 3, R, -9]
+        col0[:6] = [WP - patches.PW, 0, WP - patches.PW, WP - patches.PW + 5, 1, WP]
+    row0 = torch.from_numpy(row0.astype(np.int32))
+    col0 = torch.from_numpy(col0.astype(np.int32))
+    before = dispatch.launch_counts()["extract"]
+    got = patches.extract_patches(src.to(dev), row0.to(dev), col0.to(dev))
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["extract"] == before + 1
+    assert torch.equal(got.cpu(), patches.extract_patches_plain(src, row0, col0))
