@@ -6,7 +6,9 @@
 Drives the port's paths at the reference workload (a 752x480 camera, an
 8-level 1.2x pyramid, 1024 keypoints, a 4096-landmark map, 256
 hypotheses, NFA scoring): the headline match+localize op, the full-frame
-op (camera frame in, pose out) and the session's D=2 frame step. Phases:
+op (camera frame in, pose out), the session's D=2 frame step and the
+session itself (two drones' frames in, a bootstrapped map, filtered poses
+out). Phases:
 
   1. device   — a CUDA device is required (there is no CPU path)
   2. build    — nvcc builds the kernels from coloc_tpu_torch/csrc
@@ -22,6 +24,11 @@ op (camera frame in, pose out) and the session's D=2 frame step. Phases:
                 plain CPU path
   4c step     — STEPS session steps (intra_all_device_step) for 2 drones
                 with the Kalman bank
+  4d session  — ColocSession: init_map on frame 0 of two drones (model-E
+                five-point AC-RANSAC, triangulation, full BA), then
+                SESSION_FRAMES frames of intra_pose_all, checked against
+                the ground-truth trajectory; init_map again through the
+                plain CPU path with the same five-point draws
   5. counters — every kernel of each path launched during its phase
 
 Any failed check raises and the script exits non-zero. The last two lines
@@ -44,7 +51,11 @@ FRAMES = 50
 LEVELS, FAST_THRESHOLD, SCENE_SEED = 8, 12, 1
 FULL_FRAMES, STAGED_FRAMES, PROFILED_FRAMES = 30, 10, 3
 STEP_DRONES, STEPS = 2, 12
+SESSION_FRAMES = 10
 WARMUP, ITERS = 10, 100
+# the least time of a kernel's work on an H100 SXM at 700 W: HBM bytes/s,
+# fp32 FLOP/s outside the tensor cores, int8 tensor-core OP/s
+HBM_BPS, FP32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 
 KERNEL_INFO = {
     "k2nn": ("coloc_tpu_torch/csrc/k2nn.cu", "coloc_tpu/ops/hamming.py:103"),
@@ -53,13 +64,24 @@ KERNEL_INFO = {
                     "coloc_tpu/ops/ransac_rank.py:78"),
     "fast_nms": ("coloc_tpu_torch/csrc/fast_nms.cu", "coloc_tpu/ops/fast.py:182"),
     "extract": ("coloc_tpu_torch/csrc/extract.cu", "coloc_tpu/ops/patches.py:152"),
+    "fivept_front": ("coloc_tpu_torch/csrc/fivept_front.cu",
+                     "coloc_tpu/geometry/fivept.py:690"),
+    "fivept_dk": ("coloc_tpu_torch/csrc/fivept_dk.cu", "coloc_tpu/geometry/fivept.py:785"),
+    "fivept_polish": ("coloc_tpu_torch/csrc/fivept_polish.cu",
+                      "coloc_tpu/geometry/fivept.py:483"),
+    "epi_rank": ("coloc_tpu_torch/csrc/epi_rank.cu", "coloc_tpu/ops/ransac_rank.py:272"),
 }
+FRAME_KERNELS = ("k2nn", "p3p", "ransac_rank", "fast_nms", "extract")
 # the kernels each driven path must launch
 PATH_KERNELS = {
     "4 slice": ("k2nn", "p3p", "ransac_rank"),
-    "4b frame": KERNEL_INFO.keys(),
-    "4c step": KERNEL_INFO.keys(),
+    "4b frame": FRAME_KERNELS,
+    "4c step": FRAME_KERNELS,
+    "4d session": KERNEL_INFO.keys(),
 }
+# the phase whose launches the kernels line reports
+LAUNCH_PHASE = {name: "4b frame" if name in FRAME_KERNELS else "4d session"
+                for name in KERNEL_INFO}
 
 
 class SmokeFailure(RuntimeError):
@@ -85,6 +107,15 @@ def cuda_ms(fn, warmup: int = WARMUP, iters: int = ITERS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float, peak: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the HBM rate and its operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def percentiles(np, ms):
@@ -155,9 +186,9 @@ def main() -> int:
     from coloc_tpu_torch import config, convert, frontend, session
     from coloc_tpu_torch.fusion import kalman
     from coloc_tpu_torch.geometry import camera as cam_ops
-    from coloc_tpu_torch.geometry import p3p
+    from coloc_tpu_torch.geometry import fivept, p3p
     from coloc_tpu_torch.io import synthetic
-    from coloc_tpu_torch.matching import match_with_map, pack_map_bank
+    from coloc_tpu_torch.matching import match_pair, match_with_map, pack_map_bank
     from coloc_tpu_torch.ops import (_build, dispatch, fast, hamming, patches,
                                      pyramid, ransac_rank)
     from coloc_tpu_torch.ransac import sample_indices
@@ -326,9 +357,116 @@ def main() -> int:
         ms=cuda_ms(lambda: patches._extract_patches_cuda(sps.stacked, row0, col0)),
         plain_ms=cuda_ms(lambda: patches.extract_patches_plain(sps.stacked, row0, col0)))
     del rk, nk, rp, nmp, pk, pp
+
+    # B1-B5 bounds at this run's shapes. Operation counts: B1 as the +-1
+    # int8 product the TPU kernel runs (2 Q T 512); B2 ~1500 flops a sample;
+    # B3 ~44 flops a (model, point) pair; B4 ~180 ops a pixel; B5 moves
+    # bytes only. No single PyTorch call computes any of them.
+    Q, T = feats.desc.shape[0], bank.desc.shape[0]
+    results["k2nn"].update(bound(Q * 65 + T * 68 + 12 * Q, 2.0 * Q * T * 512, INT8_OPS))
+    nb = Xs.shape[0]
+    results["p3p"].update(bound(nb * 72 + nb * 4 * 52, nb * 1500.0, FP32_FLOPS))
+    Hm, M = ops[0].shape[0], ops[1].shape[1]
+    results["ransac_rank"].update(bound((Hm * 13 + 7 * M) * 4, Hm * M * 44.0, FP32_FLOPS))
+    results["fast_nms"].update(bound(raster.numel() * 12, raster.numel() * 180.0, FP32_FLOPS))
+    results["extract"].update(bound(sps.stacked.numel() * 4 + row0.numel() * (PH * PW * 4 + 8),
+                                    0.0, FP32_FLOPS))
+    for name in FRAME_KERNELS:
+        results[name]["library_ms"] = None
+
+    # B6-B8: 256 five-point samples of two views of a random scene, the
+    # second half on a plane (the twin-solution regime of
+    # tests/test_robust.py); each kernel against its twin on the same card
+    # inputs, bit for bit (the kernels repeat the twins' arithmetic with
+    # -fmad=false)
+    NB = cfg.ransac.num_hypotheses
+    srng = np.random.default_rng(SEED)
+    P = np.c_[srng.uniform(-3, 3, (NB * 5, 2)), srng.uniform(5, 15, (NB * 5, 1))]
+    P = P.reshape(NB, 5, 3)
+    P[NB // 2:, :, 2] = 8.0
+    Pc = P - [0.3, 0.05, 0.0]
+    s1 = torch.from_numpy((P[..., :2] / P[..., 2:]).astype(np.float32)).to(dev)
+    s2 = torch.from_numpy((Pc[..., :2] / Pc[..., 2:]).astype(np.float32)).to(dev)
+    xs = torch.cat([s1[:, :, 0], s1[:, :, 1], s2[:, :, 0], s2[:, :, 1]], dim=1).T.contiguous()
+    fr_k = fivept._front_cuda(xs)
+    fr_p = fivept.front_plain(xs)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(fr_k, fr_p))
+    check(all(torch.equal(a, b) for a, b in zip(fr_k, fr_p)),
+          f"fivept_front differs from its plain twin (max |diff| {err})")
+    results["fivept_front"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: fivept._front_cuda(xs)),
+        plain_ms=cuda_ms(lambda: fivept.front_plain(xs), 2, 10), library_ms=None,
+        **bound(NB * (20 + 887) * 4, NB * 1e4, FP32_FLOPS))
+    c, sc_ = fivept.dk_normalise(fr_p[3])
+    dk_k = fivept._dk_cuda(c, sc_)
+    dk_p = fivept.dk_roots_plain(c, sc_)
+    torch.cuda.synchronize()
+    err = float((dk_k[0] - dk_p[0]).abs().max())
+    check(torch.equal(dk_k[0], dk_p[0]) and torch.equal(dk_k[1], dk_p[1]),
+          f"fivept_dk differs from its plain twin (max |diff| {err})")
+    # the library yardstick: the roots as eigenvalues of the companion
+    # matrices, one torch.linalg.eigvals call
+    comp = torch.zeros((NB, 10, 10), device=dev)
+    comp[:, 1:, :-1] = torch.eye(9, device=dev)
+    comp[:, :, -1] = -c[:10].T
+    results["fivept_dk"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: fivept._dk_cuda(c, sc_)),
+        plain_ms=cuda_ms(lambda: fivept.dk_roots_plain(c, sc_), 2, 10),
+        library_ms=cuda_ms(lambda: torch.linalg.eigvals(comp), 2, 20),
+        **bound(NB * (12 * 4 + 10 * 5), NB * 2.5e4, FP32_FLOPS))
+    delta = 0.01 * (dk_p[0].abs() + 1.0)
+    seeds = torch.cat([dk_p[0], dk_p[0] + delta, dk_p[0] - delta]).contiguous()
+    svalid = dk_p[1].repeat(3, 1).contiguous()
+    pol = (fr_p[1], fr_p[2], fr_p[0], seeds, svalid)
+    po_k = fivept._polish_cuda(*pol)
+    po_p = fivept.polish_plain(*pol)
+    torch.cuda.synchronize()
+    both = po_k[1] & po_p[1]
+    err = float((po_k[0] - po_p[0])[both].abs().max()) if bool(both.any()) else 0.0
+    check(torch.equal(po_k[1], po_p[1]) and torch.equal(po_k[0][both], po_p[0][both]),
+          f"fivept_polish differs from its plain twin (max |diff| {err})")
+    print(f"[3 fivept] B={NB}: front, dk, polish bit-equal to their twins; "
+          f"{int(dk_p[1].sum())} real roots, {int(po_k[1].sum())} valid E of {po_k[1].numel()}")
+    results["fivept_polish"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: fivept._polish_cuda(*pol)),
+        plain_ms=cuda_ms(lambda: fivept.polish_plain(*pol), 2, 10), library_ms=None,
+        **bound(NB * (906 * 4 + 30 + 30 * 37), NB * 30 * 1e4, FP32_FLOPS))
+
+    # B9: the 7680 candidates of those samples against 1024 correspondences
+    # of two views of a random scene, a band of them invalid
+    Es = fivept.five_point_batch(s1, s2)[0].reshape(-1, 3, 3)
+    Mc = 1024
+    Pw = np.c_[srng.uniform(-3, 3, (Mc, 2)), srng.uniform(4, 12, (Mc, 1))]
+    Pw2 = Pw - [0.5, 0.1, 0.05]
+    e1 = torch.from_numpy((Pw[:, :2] / Pw[:, 2:]).astype(np.float32)).to(dev)
+    e2 = torch.from_numpy((Pw2[:, :2] / Pw2[:, 2:] + srng.normal(0, 2e-3, (Mc, 2)))
+                          .astype(np.float32)).to(dev)
+    e_valid = torch.ones(Mc, dtype=torch.bool, device=dev)
+    e_valid[300:400] = False
+    f_sq = float(K[0, 0]) ** 2
+    eops = tuple(t.contiguous() for t in ransac_rank.epipolar_operands(
+        Es, e1, e2, e_valid, f_sq, f_sq, cfg.ransac.essential_threshold ** 2))
+    rk = ransac_rank._epi_rank_cuda(*eops, 2, 5)
+    rp = ransac_rank.epi_rank_plain(*eops)
+    torch.cuda.synchronize()
+    d = (rk - rp).abs()
+    equal = float((d == 0).float().mean())
+    check(equal >= 0.999 and float(d.max()) <= 2.0,
+          f"epi_rank equal on {equal:.4f}, max |diff| {float(d.max())}")
+    print(f"[3 epi_rank] Hm={Es.shape[0]} x M={Mc}: equal on {equal:.4f}, max |diff| "
+          f"{float(d.max())}, best rank {float(rk.max())}")
+    Hm = Es.shape[0]
+    results["epi_rank"] = dict(
+        max_abs_err=float(d.max()), ms=cuda_ms(lambda: ransac_rank._epi_rank_cuda(*eops, 2, 5)),
+        plain_ms=cuda_ms(lambda: ransac_rank.epi_rank_plain(*eops), 2, 20), library_ms=None,
+        **bound((Hm * 28 + 28 * Mc + 1) * 4, Hm * Mc * 70.0, FP32_FLOPS))
+    del fr_k, fr_p, po_k, po_p, rk, rp
     for name, r in results.items():
-        print(f"[3 {name}] kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"max |err| {r['max_abs_err']:.3e}  ({card})")
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        print(f"[3 {name}] kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max |err| "
+              f"{r['max_abs_err']:.3e}  ({card})")
 
     # ---- phase 4: the slice end to end ----------------------------------
     bank = pack_map_bank(mapdb)
@@ -533,6 +671,114 @@ def main() -> int:
           f"latency after step 0: {percentiles(np, step_ms[1:])}; step 0 "
           f"{step_ms[0]:.3f} ms  ({card})")
 
+    # ---- phase 4d: the session, two drones' frames in, poses out ---------
+    scene = synthetic.make_scene(H, W, K, seed=SCENE_SEED)
+    traj = [synthetic.trajectory(SESSION_FRAMES + 1, d) for d in range(2)]
+    frames = {d: [synthetic.render(scene, traj[d][0][f], traj[d][1][f]).astype(np.float32)
+                  for f in range(SESSION_FRAMES + 1)] for d in range(2)}
+    first = {0: frames[0][0], 1: frames[1][0]}
+    cfg_d = config.ColocConfig(num_drones=2, detector=opts)    # model E, 4096 landmarks
+    Ks2, dists2 = np.stack([K, K]), np.zeros((2, 3), np.float32)
+    sess = session.ColocSession(cfg_d, Ks2, dists2, seed=SEED)  # cuda:0 untold
+    check(sess.device == dev, f"ColocSession chose {sess.device}, not {dev}")
+    dispatch.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ok = sess.init_map(first)
+    end.record()
+    torch.cuda.synchronize()
+    init_ms = start.elapsed_time(end)
+    check(ok and sess.map_ready, "init_map failed")
+    n_lm = int(sess.mapdb.valid.sum())
+    ba, geo = sess.bootstrap_ba, sess.bootstrap_geo
+    check(n_lm >= 8, f"init_map kept {n_lm} landmarks < 8")
+    check(ba.cov.shape == (6, 6) and bool(torch.isfinite(ba.cov).all()),
+          "drone 1's bootstrap covariance is not a finite 6x6")
+    init_counts = dispatch.launch_counts()
+    print(f"[4d init_map] {init_ms:.3f} ms; {int(geo.n_inliers)} E inliers, {n_lm} "
+          f"landmarks, BA {ba.iterations} LM iterations, rmse {float(ba.rmse):.4f} px, "
+          f"launches {init_counts}  ({card})")
+
+    def rot_err(R, R_ref):
+        """Angle between two rotations, rad: ||R - R_ref||_F = 2 sqrt(2)
+        sin(angle / 2), exact near 0 where arccos of the trace is not."""
+        d = torch.linalg.norm((R - R_ref).double()) / (2.0 * 2.0 ** 0.5)
+        return float(2.0 * torch.asin(torch.clamp(d, max=1.0)))
+
+    sess_ms, errs, centres = [], [], []
+    accepted = torch.zeros(2, dtype=torch.int32)
+    for f in range(1, SESSION_FRAMES + 1):
+        sess.frame = f
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sess.intra_pose_all({d: frames[d][f] for d in range(2)})
+        end.record()
+        torch.cuda.synchronize()
+        sess_ms.append(start.elapsed_time(end))
+        for d in range(2):
+            check(bool(out[d].success), f"session frame {f} drone {d}: localization failed")
+            R_gt = torch.from_numpy(traj[d][0][f] @ traj[0][0][0].T).to(dev)
+            errs.append(rot_err(out[d].pose.R, R_gt))
+        accepted += torch.stack([out[d].success for d in range(2)]).cpu().int() \
+            * (~sess.last_rejected.cpu()).int()
+        check(torch.equal(sess.filter_bank.steps.cpu(), accepted),
+              f"session frame {f}: filter steps {sess.filter_bank.steps.tolist()} "
+              f"!= accepted {accepted.tolist()}")
+        centres.append(out[0].pose.C.cpu())
+    counts["4d session"] = dispatch.launch_counts()
+    errs_deg = np.degrees(np.asarray(errs))
+    check(np.median(errs_deg) < 1.0 and errs_deg.max() < 2.0,
+          f"session rotation error median {np.median(errs_deg):.3f}, max "
+          f"{errs_deg.max():.3f} deg")
+    check(float(centres[-1][0]) > float(centres[0][0]),
+          "drone 0's estimated centre does not move along +x")
+    print(f"[4d session] {SESSION_FRAMES} frames of 2 drones ok; rotation error median "
+          f"{np.median(errs_deg):.4f}, max {errs_deg.max():.4f} deg; filter steps "
+          f"{sess.filter_bank.steps.tolist()}; intra_pose_all {percentiles(np, sess_ms[1:])}; "
+          f"frame 1 {sess_ms[0]:.3f} ms  ({card})")
+
+    # init_map on the card and through the plain CPU path, the same
+    # five-point draws: both bootstrap nearly the same map
+    m01 = match_pair(sess.detect(first[0]), sess.detect(first[1]), cfg_d.matcher)
+    draws = sample_indices(m01.mask, NB, 5, torch.Generator(device=dev).manual_seed(SEED + 7))
+    s_gpu = session.ColocSession(cfg_d, Ks2, dists2, device=dev)
+    s_cpu = session.ColocSession(cfg_d, Ks2, dists2, device="cpu")
+    ok_g = s_gpu.init_map(first, sample_idx=draws)
+    ok_c = s_cpu.init_map(first, sample_idx=draws.cpu())
+    check(ok_g and ok_c, f"reference init_map: card {ok_g}, CPU {ok_c}")
+    vg, vc = s_gpu.mapdb.valid.cpu(), s_cpu.mapdb.valid
+    shared = float((vg & vc).sum()) / float((vg | vc).sum())
+    Rg, Rc = s_gpu.scene.Rs[1].cpu(), s_cpu.scene.Rs[1]
+    Cg, Cc = s_gpu.scene.Cs[1].cpu().double(), s_cpu.scene.Cs[1].double()
+    dR = rot_err(Rg.double(), Rc.double())
+    dC = float(torch.arccos(torch.clamp(Cg @ Cc / (Cg.norm() * Cc.norm()), -1.0, 1.0)))
+    print(f"[4d reference] init_map card vs CPU plain path: {int(vg.sum())} / "
+          f"{int(vc.sum())} landmarks, {shared:.4f} of valid slots shared, drone 1 "
+          f"rotation {dR:.2e} rad, baseline direction {dC:.2e} rad apart")
+    check(shared >= 0.97, f"card vs CPU: {shared:.4f} of landmark slots shared < 0.97")
+    check(dR < 1e-3 and dC < 5e-3, f"card vs CPU: drone 1 {dR:.2e} rad, baseline {dC:.2e} rad")
+
+    # where the bootstrap's device time goes: init_map under the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s_gpu.init_map(first, sample_idx=draws)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if busy_us > 0:
+        ours = sum(e.time_range.elapsed_us() for e in kernels
+                   if any(k in e.name for k in ("front_kernel", "dk_kernel",
+                                                "polish_kernel", "epi_rank_kernel")))
+        print(f"[4d profile] init_map: {len(kernels)} device kernels, device busy "
+              f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+              f"({100.0 - 100.0 * busy_us / wall_us:.1f}% idle, profiler on); "
+              f"B6-B9 {ours / 1e3:.4f} ms = {100.0 * ours / busy_us:.2f}% of device time")
+    else:
+        print("[4d profile] the profiler saw no device time: not measured")
+
     # ---- phase 5: each path went through its kernels -------------------
     for phase, names in PATH_KERNELS.items():
         print(f"[5 counters] launches during phase {phase}: {counts[phase]}")
@@ -542,9 +788,9 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-         "replaces": KERNEL_INFO[name][1], "launches": counts["4b frame"][name],
-         "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
-         "plain_ms": results[name]["plain_ms"]}
+         "replaces": KERNEL_INFO[name][1], "launches": counts[LAUNCH_PHASE[name]][name],
+         **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}}
         for name in dispatch.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

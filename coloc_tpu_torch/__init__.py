@@ -9,20 +9,31 @@ Idiom: plain functions on tensors, NamedTuples of tensors for the data model
 `device` where a function creates tensors, and an explicit torch.Generator
 for RANSAC sampling.
 
-Ported so far (match+localize, the TRIP frontend, the session's frame step):
-  config, types, convert   — options, data model, numpy <-> tensor
+Ported so far (match+localize, the TRIP frontend, the session with the
+two-drone bootstrap):
+  config, types, convert   — options, data model, numpy <-> tensor (a
+                             coloc_tpu session's state included)
   ops/dispatch, ops/_build — device dispatch + launch counters, nvcc build
-  ops/hamming              — resident-bank 2-NN (kernel csrc/k2nn.cu)
-  matching                 — margin / ratio accept, match_with_map
-  geometry/{so3,camera,p3p}— P3P flats (kernel csrc/p3p.cu), Euler maps
-  ransac, ops/ransac_rank  — NFA RANSAC, ladder pre-rank (csrc/ransac_rank.cu)
-  robust, sfm/{ba,localize}— absolute_pose_p3p, refine_pose_only, localize_image
+  ops/hamming              — 2-NN against a bank (kernel csrc/k2nn.cu)
+  matching                 — margin / ratio accept, match_with_map, match_pair
+  geometry/{so3,se3,camera}— rotations, poses, the radial camera
+  geometry/p3p             — P3P flats (kernel csrc/p3p.cu)
+  geometry/fivept          — five-point solver (csrc/fivept_{front,dk,polish}.cu)
+  geometry/{essential,triangulation}
+                           — epipolar residuals, E decomposition and
+                             refinement, DLT triangulation
+  ransac, ops/ransac_rank  — NFA RANSAC, ladder pre-ranks (csrc/ransac_rank.cu,
+                             csrc/epi_rank.cu)
+  robust                   — absolute_pose_p3p, relative_pose_essential
+  sfm/{ba,localize,reconstruct}
+                           — full and pose-only LM, localize_image, the
+                             two-view scene and map database
   ops/{pyramid,orientation,descriptor}
                            — pyramid + blur, intensity-centroid angle, TRIP-512
   ops/fast                 — FAST-9 + NMS (kernel csrc/fast_nms.cu), top-k
   ops/patches              — stacked raster, patch windows (csrc/extract.cu)
   frontend                 — detect_and_describe(_batch), TRIP backend
-  fusion/kalman, session   — Kalman bank, intra_all_device_step
+  fusion/kalman, session   — Kalman bank, intra_all_device_step, ColocSession
   io/synthetic             — numpy-only scene renderer and workload generator
 """
 

@@ -23,6 +23,7 @@ import torch
 
 from coloc_tpu_torch.config import FilterOptions
 from coloc_tpu_torch.geometry import so3
+from coloc_tpu_torch.ops import dispatch
 from coloc_tpu_torch.types import Pose
 
 WARMUP_STEPS = 5
@@ -35,7 +36,10 @@ class FilterBank(NamedTuple):
     steps: torch.Tensor  # (D,) int32 accepted-update count (gate warm-up)
 
 
-def init(num_drones: int, opts: FilterOptions, device="cpu") -> FilterBank:
+def init(num_drones: int, opts: FilterOptions, device=None) -> FilterBank:
+    """P0 = initial_covariance I, zero state. `device` None is cuda:0, and
+    raises where there is none (dispatch.default_device)."""
+    device = dispatch.default_device(device)
     eye = torch.eye(6, dtype=torch.float32, device=device)
     return FilterBank(
         x=torch.zeros((num_drones, 6), dtype=torch.float32, device=device),

@@ -1,0 +1,162 @@
+"""Essential-matrix residuals, decomposition and manifold refinement
+(counterpart of the model-E part of coloc_tpu.geometry.essential).
+
+Reference parity: OpenMVG SymmetricEpipolarDistanceError inside the
+ACRANSAC essential kernel (RobustMatcher.hpp:161-171) and
+RelativePoseFromEssential's cheirality vote (RobustMatcher.hpp:180).
+Convention: x_cam2 = R (x_cam1 - C), t = -R C.
+
+refine_relative_pose is Gauss-Newton over (R in SO(3), t on S^2). Its
+Jacobian comes from torch.func.jacfwd, as coloc_tpu's from jax.jacfwd, and
+its early exit is read on the host once a step (coloc_tpu: lax.while_loop).
+The 7-point, 8-point and fundamental solvers wait for model F.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from coloc_tpu_torch.geometry import so3
+
+
+def _homog(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, torch.ones_like(x[:, :1])], dim=-1)
+
+
+def symmetric_epipolar_distance_sq(E, x1, x2, s1_sq=1.0, s2_sq=1.0) -> torch.Tensor:
+    """Squared symmetric point-to-epipolar-line distance, (M,); s1_sq /
+    s2_sq scale each image's side (the squared focals give pixels)."""
+    h1, h2 = _homog(x1), _homog(x2)
+    Ex1 = h1 @ E.T                  # epipolar line of x1 in image 2
+    Etx2 = h2 @ E                   # epipolar line of x2 in image 1
+    num = (h2 * Ex1).sum(dim=-1) ** 2
+    d_img2 = num / (Ex1[:, 0] ** 2 + Ex1[:, 1] ** 2 + 1e-12)
+    d_img1 = num / (Etx2[:, 0] ** 2 + Etx2[:, 1] ** 2 + 1e-12)
+    return s2_sq * d_img2 + s1_sq * d_img1
+
+
+def symmetric_epipolar_distance_sq_batch(Es, x1, x2, s1_sq=1.0, s2_sq=1.0
+                                         ) -> torch.Tensor:
+    """All models at once, (Hm, M): three (Hm, 9) x (9, M) products of
+    quadratic forms and an epilogue; the denominators clamp at 1e-12."""
+    Hm, M = Es.shape[0], x1.shape[0]
+    h1, h2 = _homog(x1), _homog(x2)
+    O = (h2[:, :, None] * h1[:, None, :]).reshape(M, 9)
+    A = Es.reshape(Hm, 9) @ O.T
+    num = A * A
+    rows = Es[:, :2, :]
+    S1 = torch.einsum("had,hak->hdk", rows, rows).reshape(Hm, 9)
+    cols = Es[:, :, :2]
+    S2 = torch.einsum("hda,hka->hdk", cols, cols).reshape(Hm, 9)
+    P1 = (h1[:, :, None] * h1[:, None, :]).reshape(M, 9)
+    P2 = (h2[:, :, None] * h2[:, None, :]).reshape(M, 9)
+    den2 = torch.clamp(S1 @ P1.T, min=1e-12)
+    den1 = torch.clamp(S2 @ P2.T, min=1e-12)
+    return s2_sq * num / den2 + s1_sq * num / den1
+
+
+def sampson_distance_sq(E, x1, x2) -> torch.Tensor:
+    """First-order geometric (Sampson) epipolar error, (M,)."""
+    h1, h2 = _homog(x1), _homog(x2)
+    Ex1 = h1 @ E.T
+    Etx2 = h2 @ E
+    num = (h2 * Ex1).sum(dim=-1) ** 2
+    denom = Ex1[:, 0] ** 2 + Ex1[:, 1] ** 2 + Etx2[:, 0] ** 2 + Etx2[:, 1] ** 2
+    return num / (denom + 1e-12)
+
+
+def hat3(w: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros_like(w[0])
+    return torch.stack([torch.stack([zero, -w[2], w[1]]),
+                        torch.stack([w[2], zero, -w[0]]),
+                        torch.stack([-w[1], w[0], zero])])
+
+
+def _tangent_basis(t: torch.Tensor) -> torch.Tensor:
+    """(3, 2) orthonormal basis of the plane orthogonal to unit t."""
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=t.dtype, device=t.device)
+    ey = torch.tensor([0.0, 1.0, 0.0], dtype=t.dtype, device=t.device)
+    a = torch.where(t[0].abs() < 0.9, ex, ey)
+    b1 = a - t * torch.dot(a, t)
+    b1 = b1 / (torch.linalg.norm(b1) + 1e-12)
+    b2 = torch.linalg.cross(t, b1)
+    return torch.stack([b1, b2], dim=1)
+
+
+def _weighted_sampson(R, t, x1, x2, weights):
+    return torch.sqrt(sampson_distance_sq(hat3(t) @ R, x1, x2) + 1e-12) * weights
+
+
+def refine_relative_pose(R, t, x1, x2, weights, iters: int = 8
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gauss-Newton on the essential manifold: weighted Sampson error over
+    5 DoF (so planar scenes stay well-posed). Stops on a rejected step, a
+    step below 1e-6 or a relative improvement below 1e-7, as coloc_tpu."""
+    p0 = torch.zeros(5, dtype=R.dtype, device=R.device)
+    eye5 = torch.eye(5, dtype=R.dtype, device=R.device)
+    for _ in range(iters):
+        B = _tangent_basis(t)
+
+        def resid(p):
+            tp = t + B @ p[3:]
+            tp = tp / (torch.linalg.norm(tp) + 1e-12)
+            # a batch of one: under jacfwd a 0-dim tensor meeting a Python
+            # float promotes to float64
+            return _weighted_sampson(so3.exp(p[None, :3])[0] @ R, tp, x1, x2,
+                                     weights)
+
+        r = resid(p0)
+        J = torch.func.jacfwd(resid)(p0)                     # (M, 5)
+        p = -torch.linalg.solve(J.T @ J + 1e-8 * eye5, J.T @ r)
+        R_new = so3.exp(p[:3]) @ R
+        t_new = t + B @ p[3:]
+        t_new = t_new / (torch.linalg.norm(t_new) + 1e-12)
+        c_old = (r ** 2).sum()
+        c_new = (_weighted_sampson(R_new, t_new, x1, x2, weights) ** 2).sum()
+        better = c_new < c_old
+        R = torch.where(better, R_new, R)
+        t = torch.where(better, t_new, t)
+        done = (~better | ((p * p).sum() < 1e-12)
+                | (c_old - c_new < 1e-7 * (c_old + 1e-20)))
+        if bool(done):
+            break
+    return R, t
+
+
+def decompose_essential(E, x1, x2, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E -> (R, t) of most cheirality votes over the masked correspondences:
+    the closed-form extraction of coloc_tpu (t the largest cross product of
+    two columns, R = -[t]x E + Cof(E) and its twisted mate, one polar
+    step), then the 4 candidates vote by two-view depth signs; the first
+    of equal votes wins (jnp.argmax)."""
+    c0, c1, c2 = E[:, 0], E[:, 1], E[:, 2]
+    crosses = torch.stack([torch.linalg.cross(c0, c1), torch.linalg.cross(c0, c2),
+                           torch.linalg.cross(c1, c2)])
+    norms = (crosses * crosses).sum(dim=1)
+    t = crosses[torch.argmax(norms)]          # torch.argmax: first maximum
+    t = t / (torch.linalg.norm(t) + 1e-12)
+    Es = E * (2.0 ** 0.5 / (torch.linalg.norm(E) + 1e-12))
+    cof = torch.stack([torch.linalg.cross(Es[:, 1], Es[:, 2]),
+                       torch.linalg.cross(Es[:, 2], Es[:, 0]),
+                       torch.linalg.cross(Es[:, 0], Es[:, 1])], dim=1)
+    tx = hat3(t)
+
+    def polar_fix(R):
+        return 1.5 * R - 0.5 * R @ (R.T @ R)
+
+    R1 = polar_fix(-tx @ Es + cof)
+    R2 = polar_fix(tx @ Es + cof)
+    Rs = torch.stack([R1, R1, R2, R2])
+    ts = torch.stack([t, -t, t, -t])
+
+    h1, h2 = _homog(x1), _homog(x2)
+    Rx1 = torch.einsum("cij,mj->cmi", Rs, h1)                # (4, M, 3)
+    cr = torch.linalg.cross(h2.expand_as(Rx1), Rx1)
+    ct = torch.linalg.cross(h2[None].expand_as(Rx1), ts[:, None, :].expand_as(Rx1))
+    z1 = -(cr * ct).sum(dim=-1) / ((cr * cr).sum(dim=-1) + 1e-12)
+    z2 = (z1[..., None] * Rx1 + ts[:, None, :])[..., 2]
+    votes = ((z1 > 0) & (z2 > 0) & mask[None]).to(torch.int32).sum(dim=1)
+    k = torch.argmax(votes)
+    return Rs[k], ts[k]

@@ -29,6 +29,15 @@ def _accept(idx, best, second, q_valid, opts: MatcherOptions,
                    second=second)
 
 
+def match_pair(query: Features, train: Features, opts: MatcherOptions) -> Matches:
+    """Frame-vs-frame putative matching (computeMatchesPair parity), with
+    the pairwise margin."""
+    idx, best, second = hamming.hamming_2nn(query.desc, train.desc,
+                                            query.valid, train.valid)
+    return _accept(idx, best, second, query.valid, opts,
+                   opts.pair_margin_threshold)
+
+
 def pack_map_bank(mapdb: MapDB) -> hamming.Bank:
     """The device-resident map descriptor bank (setMapData parity)."""
     return hamming.pack_bank(mapdb.desc, mapdb.valid)

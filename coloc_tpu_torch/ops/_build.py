@@ -46,6 +46,10 @@ _SIGNATURES = {
     "coloc_ransac_rank": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P],
     "coloc_fast_nms": [_P, _P, _P, _I, _I, _F, _I, _P],
     "coloc_extract": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "coloc_fivept_front": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "coloc_fivept_dk": [_P, _P, _P, _P, _I, _I, _P],
+    "coloc_fivept_polish": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "coloc_epi_rank": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

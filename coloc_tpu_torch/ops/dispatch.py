@@ -17,7 +17,8 @@ from typing import Dict
 
 import torch
 
-KERNELS = ("k2nn", "p3p", "ransac_rank", "fast_nms", "extract")
+KERNELS = ("k2nn", "p3p", "ransac_rank", "fast_nms", "extract",
+           "fivept_front", "fivept_dk", "fivept_polish", "epi_rank")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -29,6 +30,19 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise RuntimeError(f"no kernel or plain path for device {t.device}")
+
+
+def default_device(device=None) -> torch.device:
+    """The device of an entry point: the caller's, or cuda:0 when None.
+    There is no silent CPU: with no CUDA device, None raises, and the CPU
+    is used only when the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card; pass device='cpu' to "
+            "run the plain PyTorch path")
+    return torch.device("cuda", 0)
 
 
 def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype, shape,

@@ -109,3 +109,14 @@ def hamming_2nn_bank(
     if dispatch.use_kernel(q_desc):
         return _hamming_2nn_cuda(q_desc, q_valid, bank)
     return hamming_2nn_plain(q_desc, q_valid, bank)
+
+
+def hamming_2nn(q_desc: torch.Tensor, t_desc: torch.Tensor,
+                q_valid: torch.Tensor, t_valid: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """2-NN of one descriptor set against another (frame against frame):
+    the train side is packed as a bank, then the bank path. Where the best
+    train row is invalid this reports the kernel's sentinels (idx -1, 2048)
+    where coloc_tpu's XLA form reports the penalized distance; the accept
+    test rejects both alike."""
+    return hamming_2nn_bank(q_desc, q_valid, pack_bank(t_desc, t_valid))

@@ -1,5 +1,5 @@
-"""Fused RANSAC pre-rank: P3P residual + threshold-ladder count (counterpart
-of coloc_tpu.ops.ransac_rank).
+"""Fused RANSAC pre-ranks: P3P / epipolar residual + threshold-ladder count
+(counterpart of coloc_tpu.ops.ransac_rank).
 
 The NFA pre-rank (ransac.py, scoring="nfa") needs per candidate model only
 a scalar: the number of ladder rungs thr * 4^j, j in [jmax - n_rungs + 1,
@@ -13,6 +13,10 @@ product form (no division):
   ladder_rank_plain  — the kernel's plain twin, (Hm, M) planes in memory
   p3p_ladder_rank    — the P3P entry (zmode "pos"): folds focal into the model
                        and observation operands, then ladder_rank
+  epi_rank           — the CUDA kernel csrc/epi_rank.cu on a CUDA tensor,
+                       epi_rank_plain on CPU (symmetric epipolar distance)
+  epipolar_ladder_rank — the E/F entry: (Hm, 27) model and (27, M) data
+                       operands with the focal scales folded in, then epi_rank
 
 zmode "pos" (P3P reprojection): Z <= 0 counts 0, the denominator clamps at
 1e-9. zmode "nonzero" (homography transfer): |Z| < 1e-9 counts 0.
@@ -117,3 +121,96 @@ def p3p_ladder_rank(flats, Xw, bearings, valid, focal, thr_sq: float,
     (Hm,) float32 ladder rank."""
     eflat, xh, obs, maskf = p3p_operands(flats, Xw, bearings, valid, focal)
     return ladder_rank(eflat, xh, obs, maskf, thr_sq, "pos", jmax, n_rungs)
+
+
+# ---------------------------------------------------------------------------
+# Epipolar (essential/fundamental) ladder rank
+# ---------------------------------------------------------------------------
+#
+# The product form of the symmetric epipolar gate (dens clamped at 0):
+#   err = num (s2 den1' + s1 den2') / (den1' den2') < thr 4^j
+#   <=>  num (den1 + den2) < (thr / (s1 s2)) 4^j den1 den2
+# with den1 = s2 den1', den2 = s1 den2' pre-scaled into the data operand, so
+# the rung scale c = thr / (s1 s2) is the one scalar the kernel reads. Counts
+# equal the division-form ladder except at f32 rounding of exact rung ties.
+
+def epi_rank_plain(emat: torch.Tensor, dmat: torch.Tensor, maskf: torch.Tensor,
+                   c: torch.Tensor, jmax: int = LADDER_JMAX,
+                   n_rungs: int = LADDER_RUNGS) -> torch.Tensor:
+    """Plain twin of csrc/epi_rank.cu: emat (Hm, 27), dmat (27, M), maskf
+    (M,), c (1,) -> (Hm,) float32."""
+
+    def contract(c0):
+        acc = emat[:, c0:c0 + 1] * dmat[c0:c0 + 1, :]
+        for k in range(1, 9):
+            acc = acc + emat[:, c0 + k:c0 + k + 1] * dmat[c0 + k:c0 + k + 1, :]
+        return acc                                    # (Hm, M)
+
+    A = contract(0)
+    den2 = torch.clamp(contract(9), min=0.0)
+    den1 = torch.clamp(contract(18), min=0.0)
+    num = A * A
+    lhs = num * (den1 + den2)
+    rhs = den1 * den2
+    cnt = torch.zeros_like(lhs)
+    for j in range(jmax - n_rungs + 1, jmax + 1):
+        cnt = cnt + torch.where(lhs < (c * 4.0 ** j) * rhs, 1.0, 0.0)
+    return (cnt * maskf[None, :]).sum(dim=1)
+
+
+def _epi_rank_cuda(emat, dmat, maskf, c, jmax, n_rungs):
+    dev = emat.device
+    Hm, M = emat.shape[0], dmat.shape[1]
+    dispatch.check_operand(emat, "emat", torch.float32, (Hm, 27), dev)
+    dispatch.check_operand(dmat, "dmat", torch.float32, (27, M), dev)
+    dispatch.check_operand(maskf, "maskf", torch.float32, (M,), dev)
+    dispatch.check_operand(c, "c", torch.float32, (1,), dev)
+    rank = torch.empty(Hm, dtype=torch.float32, device=dev)
+    _build.launch(
+        "coloc_epi_rank", emat.data_ptr(), dmat.data_ptr(), maskf.data_ptr(),
+        c.data_ptr(), rank.data_ptr(), Hm, M, jmax - n_rungs + 1, n_rungs,
+        dev.index, dispatch.stream_handle(dev))
+    dispatch.count_launch("epi_rank")
+    return rank
+
+
+def epi_rank(emat, dmat, maskf, c, jmax: int = LADDER_JMAX,
+             n_rungs: int = LADDER_RUNGS) -> torch.Tensor:
+    """(Hm,) float32 epipolar ladder rank per model."""
+    if dispatch.use_kernel(emat):
+        return _epi_rank_cuda(emat.contiguous(), dmat.contiguous(),
+                              maskf.contiguous(), c.contiguous(), jmax, n_rungs)
+    return epi_rank_plain(emat, dmat, maskf, c, jmax, n_rungs)
+
+
+def epipolar_operands(Es, x1, x2, valid, s1_sq, s2_sq, thr_sq: float):
+    """The rank's operands for E/F models: (emat (Hm, 27) = [vec E | vec S1 |
+    vec S2], dmat (27, M) = [h2 (x) h1 | s1 h1 (x) h1 | s2 h2 (x) h2],
+    maskf (M,), c (1,) = thr / (s1 s2))."""
+    Hm, M = Es.shape[0], x1.shape[0]
+    rows = Es[:, :2, :]
+    S1 = torch.einsum("had,hak->hdk", rows, rows).reshape(Hm, 9)
+    cols = Es[:, :, :2]
+    S2 = torch.einsum("hda,hka->hdk", cols, cols).reshape(Hm, 9)
+    emat = torch.cat([Es.reshape(Hm, 9), S1, S2], dim=1)
+    h1 = torch.cat([x1, torch.ones_like(x1[:, :1])], dim=-1)
+    h2 = torch.cat([x2, torch.ones_like(x2[:, :1])], dim=-1)
+    O = (h2[:, :, None] * h1[:, None, :]).reshape(M, 9)
+    P1 = (h1[:, :, None] * h1[:, None, :]).reshape(M, 9)
+    P2 = (h2[:, :, None] * h2[:, None, :]).reshape(M, 9)
+    s1f = torch.as_tensor(s1_sq, dtype=torch.float32, device=Es.device)
+    s2f = torch.as_tensor(s2_sq, dtype=torch.float32, device=Es.device)
+    dmat = torch.cat([O, s1f * P1, s2f * P2], dim=1).T
+    c = (torch.tensor(thr_sq, dtype=torch.float32, device=Es.device)
+         / torch.clamp(s1f * s2f, min=1e-20)).reshape(1)
+    return emat, dmat, valid.to(torch.float32), c
+
+
+def epipolar_ladder_rank(Es, x1, x2, valid, s1_sq, s2_sq, thr_sq: float,
+                         jmax: int = LADDER_JMAX,
+                         n_rungs: int = LADDER_RUNGS) -> torch.Tensor:
+    """Es (Hm, 3, 3), x1/x2 (M, 2) normalised coords, valid (M,) bool, the
+    squared focal scales of each image -> (Hm,) float32 ladder rank."""
+    emat, dmat, maskf, c = epipolar_operands(Es, x1, x2, valid, s1_sq, s2_sq,
+                                             thr_sq)
+    return epi_rank(emat, dmat, maskf, c, jmax, n_rungs)

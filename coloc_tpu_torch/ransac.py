@@ -131,9 +131,9 @@ def sample_indices(valid: torch.Tensor, num_samples: int, sample_size: int,
 def ransac(
     data: Tuple[torch.Tensor, ...],
     valid: torch.Tensor,
-    batch_solver: Callable,   # (gathered (B, S, ...) each) -> (models (B, H, D), valid (B, H))
-    scorer: Callable,         # (model (D,), *data) -> (M,) squared residuals
-    batch_scorer: Callable,   # (models (Hm, D), *data) -> (Hm, M)
+    batch_solver: Callable,   # (gathered (B, S, ...) each) -> (models (B, H, ...), valid (B, H))
+    scorer: Callable,         # (model (...), *data) -> (M,) squared residuals
+    batch_scorer: Callable,   # (models (Hm, ...), *data) -> (Hm, M)
     sample_size: int,
     num_hypotheses: int,
     threshold_sq: float,
@@ -156,8 +156,8 @@ def ransac(
     else:
         idx = sample_idx.to(device=valid.device, dtype=torch.int64)
     gathered = tuple(d[idx] for d in data)
-    models, model_valid = batch_solver(*gathered)          # (B, H, D), (B, H)
-    flat_models = models.reshape(-1, models.shape[-1])
+    models, model_valid = batch_solver(*gathered)          # (B, H, ...), (B, H)
+    flat_models = models.reshape((-1,) + tuple(models.shape[2:]))
     flat_valid = model_valid.reshape(-1)
     gate = int(inlier_multiple * sample_size)
 

@@ -1,8 +1,10 @@
-"""Robust absolute pose (counterpart of the P3P part of coloc_tpu.robust).
+"""Robust two-view and absolute pose (counterpart of the model-E and P3P
+parts of coloc_tpu.robust).
 
-Reference parity: Localizer.hpp:77-108 — AC-RANSAC P3P (256 hypotheses)
-with the `inliers >= 2.5 x 3` gate. Failure is a `success` flag, never an
-exception. The E/F/H two-view paths are not ported yet.
+Reference parity: RobustMatcher.hpp computeRelativePose (:372-424) for
+model 'E', and Localizer.hpp:77-108 — AC-RANSAC P3P (256 hypotheses); both
+accept iff inliers >= 2.5 x the minimal sample. Failure is a `success`
+flag, never an exception. Models 'F' and 'H' are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,10 +16,12 @@ import torch
 
 from coloc_tpu_torch.config import RansacOptions
 from coloc_tpu_torch.geometry import camera as cam_ops
+from coloc_tpu_torch.geometry import essential as ess
+from coloc_tpu_torch.geometry import fivept
 from coloc_tpu_torch.geometry import p3p as p3p_ops
 from coloc_tpu_torch.ops import ransac_rank
 from coloc_tpu_torch.ransac import ransac
-from coloc_tpu_torch.types import Pose
+from coloc_tpu_torch.types import Pose, TwoViewGeometry
 
 
 def _mean_focal(cam: cam_ops.Camera) -> torch.Tensor:
@@ -65,6 +69,67 @@ def _p3p_residuals(flat: torch.Tensor, Xw: torch.Tensor, bearings: torch.Tensor,
     obs = bearings / torch.clamp(bearings[:, 2:3], min=1e-9)
     err = ((proj[:, :2] - obs[:, :2]) ** 2).sum(dim=-1) * focal ** 2
     return torch.where(Xc[:, 2] <= 0, 1e12, err)
+
+
+def relative_pose_essential(
+    uv1: torch.Tensor,       # (M, 2) distorted pixels, camera 1
+    uv2: torch.Tensor,       # (M, 2) distorted pixels, camera 2
+    mask: torch.Tensor,      # (M,) bool valid correspondences
+    cam1: cam_ops.Camera,
+    cam2: cam_ops.Camera,
+    opts: RansacOptions,
+    generator: Optional[torch.Generator] = None,
+    sample_idx: Optional[torch.Tensor] = None,
+) -> TwoViewGeometry:
+    """Model 'E': five-point AC-RANSAC (256 samples x 30 candidates), the
+    cheirality decomposition, Gauss-Newton on the essential manifold, a
+    revert if the refined model keeps fewer inliers, and a second
+    cheirality vote on the final E (the Sampson objective is blind to the
+    +-t / twisted-pair ambiguity).
+
+    The five-point solver (csrc/fivept_{front,dk,polish}.cu) and the
+    epipolar pre-rank (csrc/epi_rank.cu) run as kernels on a CUDA device.
+    Residuals are in pixels, each side scaled by its own camera's focal."""
+    x1 = cam_ops.undistort(cam1, cam_ops.normalize(cam1, uv1))
+    x2 = cam_ops.undistort(cam2, cam_ops.normalize(cam2, uv2))
+    f1_sq = _mean_focal(cam1) ** 2
+    f2_sq = _mean_focal(cam2) ** 2
+    thr_sq = opts.essential_threshold ** 2
+
+    def scorer(E, a1, a2):
+        return ess.symmetric_epipolar_distance_sq(E, a1, a2, f1_sq, f2_sq)
+
+    def batch_scorer(Es, a1, a2):
+        return ess.symmetric_epipolar_distance_sq_batch(Es, a1, a2, f1_sq, f2_sq)
+
+    def rank_fn(Es, valid_c, a1, a2):
+        return ransac_rank.epipolar_ladder_rank(Es, a1, a2, valid_c, f1_sq,
+                                                f2_sq, thr_sq)
+
+    # log_alpha0 of a point-to-line error in pixels
+    A_px = (2.0 * cam1.cx) * (2.0 * cam1.cy)
+    D_px = torch.sqrt((2.0 * cam1.cx) ** 2 + (2.0 * cam1.cy) ** 2)
+    res = ransac(
+        (x1, x2), mask, fivept.five_point_batch, scorer, batch_scorer,
+        sample_size=5, num_hypotheses=opts.num_hypotheses,
+        threshold_sq=thr_sq, inlier_multiple=opts.inlier_multiple,
+        scoring=opts.scoring, log_alpha0=torch.log10(2.0 * D_px / A_px),
+        error_dim=1.0, rank_fn=rank_fn, generator=generator,
+        sample_idx=sample_idx,
+    )
+
+    R, t = ess.decompose_essential(res.model, x1, x2, res.inliers)
+    R, t = ess.refine_relative_pose(R, t, x1, x2, res.inliers.to(torch.float32))
+    E_ref = ess.hat3(t) @ R
+    refined_inl = (scorer(E_ref, x1, x2) < res.threshold_sq) & mask
+    # a refinement that lands in a worse basin reverts model AND inliers
+    keep = refined_inl.to(torch.int32).sum() >= res.n_inliers
+    inliers = torch.where(keep, refined_inl, res.inliers)
+    E_final = torch.where(keep, E_ref, res.model)
+    R, t = ess.decompose_essential(E_final, x1, x2, inliers)
+    return TwoViewGeometry(R=R, t=t, inliers=inliers,
+                           n_inliers=inliers.to(torch.int32).sum(),
+                           success=res.success)
 
 
 def absolute_pose_p3p(

@@ -64,6 +64,16 @@ class PoseWithCov(NamedTuple):
     success: torch.Tensor  # () bool
 
 
+class TwoViewGeometry(NamedTuple):
+    """Relative pose from robust two-view estimation (RelativePose_Info)."""
+
+    R: torch.Tensor        # (3, 3) rotation, camera 1 -> camera 2
+    t: torch.Tensor        # (3,) unit translation, x2 = R x1 + t
+    inliers: torch.Tensor  # (K,) bool over the putative matches
+    n_inliers: torch.Tensor  # () int32
+    success: torch.Tensor  # () bool
+
+
 class MapDB(NamedTuple):
     """Landmark map + resident descriptor bank."""
 

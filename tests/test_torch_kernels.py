@@ -13,7 +13,7 @@ import torch
 
 from coloc_tpu_torch import convert
 from coloc_tpu_torch.geometry import camera as cam_ops
-from coloc_tpu_torch.geometry import p3p
+from coloc_tpu_torch.geometry import fivept, p3p
 from coloc_tpu_torch.io import synthetic
 from coloc_tpu_torch.ops import dispatch, fast, hamming, patches, ransac_rank
 
@@ -67,7 +67,7 @@ def _samples(rng, B):
     fa = synthetic.random_features(480, 752, 1024, rng)
     K = np.array([[451.2, 0, 376], [0, 451.2, 240], [0, 0, 1]], np.float32)
     ma = synthetic.consistent_mapdb(fa, K, 1024, rng)
-    cam = convert.camera_from_numpy(K)
+    cam = convert.camera_from_numpy(K, device="cpu")
     b = cam_ops.bearing(cam, torch.from_numpy(fa.xy))
     idx = torch.from_numpy(np.stack([rng.choice(1024, 3, replace=False)
                                      for _ in range(B)]))
@@ -151,3 +151,86 @@ def test_extract_kernel_equals_plain(dev, K):
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["extract"] == before + 1
     assert torch.equal(got.cpu(), patches.extract_patches_plain(src, row0, col0))
+
+
+def _fivept_samples(B, seed=0):
+    """B five-point samples of two views, the second half planar (the
+    twin-solution regime): x1, x2 (B, 5, 2)."""
+    rng = np.random.default_rng(seed)
+    X = np.c_[rng.uniform(-3, 3, (B * 5, 2)), rng.uniform(5, 15, (B * 5, 1))].reshape(B, 5, 3)
+    X[B // 2:, :, 2] = 8.0
+    Xc = X - [0.3, 0.05, 0.0]
+    return (torch.from_numpy((X[..., :2] / X[..., 2:]).astype(np.float32)),
+            torch.from_numpy((Xc[..., :2] / Xc[..., 2:]).astype(np.float32)))
+
+
+def _fivept_stages(x1, x2):
+    xs = torch.cat([x1[:, :, 0], x1[:, :, 1], x2[:, :, 0], x2[:, :, 1]], dim=1).T.contiguous()
+    basis, md, coef, npoly = fivept.front_plain(xs)
+    c, s = fivept.dk_normalise(npoly)
+    roots, is_real = fivept.dk_roots_plain(c, s)
+    delta = 0.01 * (roots.abs() + 1.0)
+    seeds = torch.cat([roots, roots + delta, roots - delta]).contiguous()
+    return xs, (basis, md, coef, npoly), (c, s), (md, coef, basis, seeds, is_real.repeat(3, 1))
+
+
+@pytest.mark.parametrize("B", [1, 37, 256])
+def test_fivept_kernels_equal_plain(dev, B):
+    """B6, B7, B8 each against its plain twin on the same card inputs: the
+    kernels repeat the twins' arithmetic (-fmad=false), so bit-equal."""
+    x1, x2 = _fivept_samples(B)
+    xs, front_out, dk_in, polish_in = _fivept_stages(x1.to(dev), x2.to(dev))
+    before = dispatch.launch_counts()
+    got = fivept.front(xs)
+    for g, w in zip(got, front_out):
+        assert torch.equal(g, w)
+    roots, is_real = fivept.dk_roots(*dk_in)
+    want = fivept.dk_roots_plain(*dk_in)
+    assert torch.equal(roots, want[0]) and torch.equal(is_real, want[1])
+    Es, valid = fivept.polish(*polish_in)
+    want = fivept.polish_plain(*polish_in)
+    torch.cuda.synchronize()
+    assert torch.equal(valid, want[1])
+    assert torch.equal(Es[valid], want[0][valid])
+    after = dispatch.launch_counts()
+    for name in ("fivept_front", "fivept_dk", "fivept_polish"):
+        assert after[name] == before[name] + 1
+
+
+def test_five_point_batch_card_against_cpu(dev):
+    """The whole solver on the card against the CPU plain path: the plain
+    steps between the launches (monic normalisation, pow/exp/log) round
+    differently on the two devices, so the two are held by what RANSAC
+    needs, the per-sample solutions."""
+    x1, x2 = _fivept_samples(256, seed=1)
+    Ek, vk = fivept.five_point_batch(x1.to(dev), x2.to(dev))
+    Ec, vc = fivept.five_point_batch(x1, x2)
+    h1 = torch.cat([x1, torch.ones_like(x1[..., :1])], dim=-1)
+    h2 = torch.cat([x2, torch.ones_like(x2[..., :1])], dim=-1)
+
+    def best(Es, valid):
+        alg = torch.einsum("bsi,bhij,bsj->bhs", h2, Es.cpu(), h1).abs().amax(-1)
+        return torch.where(valid.cpu(), alg, float("inf")).amin(-1)
+
+    solved_c, solved_k = best(Ec, vc) < 1e-4, best(Ek, vk) < 1e-4
+    assert int((solved_c & ~solved_k).sum()) <= 1
+    assert float((vk.cpu() == vc).float().mean()) >= 0.9
+
+
+@pytest.mark.parametrize("Hm,M", [(1, 5), (1110, 300), (7680, 1024)])
+def test_epi_rank_kernel_equals_plain(dev, Hm, M):
+    rng = np.random.default_rng(Hm + M)
+    Es = torch.from_numpy(rng.normal(size=(Hm, 3, 3)).astype(np.float32))
+    x1 = torch.from_numpy(rng.uniform(-0.6, 0.6, (M, 2)).astype(np.float32))
+    x2 = x1 + torch.from_numpy(rng.normal(0, 0.01, (M, 2)).astype(np.float32))
+    valid = torch.from_numpy(rng.random(M) > 0.2)
+    ops = [t.to(dev).contiguous() for t in ransac_rank.epipolar_operands(
+        Es, x1, x2, valid, 451.2 ** 2, 480.0 ** 2, 16.0)]
+    before = dispatch.launch_counts()["epi_rank"]
+    got = ransac_rank.epi_rank(*ops)
+    want = ransac_rank.epi_rank_plain(*ops)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["epi_rank"] == before + 1
+    d = (got - want).abs()
+    assert float((d == 0).float().mean()) >= 0.999
+    assert float(d.max()) <= 2.0

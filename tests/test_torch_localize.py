@@ -80,9 +80,9 @@ def test_match_localize_parity(seed, outlier_frac):
     corr = jm.mask & jfeats.valid
     sample_idx = np.array(jransac.sample_indices(key, corr, 256, 3))
 
-    feats = convert.features_from_numpy(fa)
-    mapdb = convert.mapdb_from_numpy(ma)
-    cam = convert.camera_from_numpy(K)
+    feats = convert.features_from_numpy(fa, "cpu")
+    mapdb = convert.mapdb_from_numpy(ma, "cpu")
+    cam = convert.camera_from_numpy(K, device="cpu")
     tm = match_with_map(feats, mapdb, tcfg.MatcherOptions(),
                         bank=pack_map_bank(mapdb))
     tpwc, tinl = localize_image(feats, tm, mapdb, cam, tcfg.RansacOptions(),
@@ -167,7 +167,7 @@ def test_pose_jacobian_matches_jacfwd():
     rj = jax.vmap(lambda Xl, u: f(jnp.zeros(6), Xl, u))(jnp.asarray(X),
                                                          jnp.asarray(uv))
     t = torch.from_numpy
-    cam = convert.camera_from_numpy(K, d)
+    cam = convert.camera_from_numpy(K, d, device="cpu")
     Jt, rt = tba._jac_res(t(R0), t(C0), cam, t(X), t(uv))
     Jj = np.asarray(Jj)
     err = np.abs(Jt.numpy() - Jj) / (np.abs(Jj).max(axis=(1, 2), keepdims=True))

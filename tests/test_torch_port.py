@@ -65,7 +65,7 @@ def test_convert_round_trip_keeps_descriptor_bits():
     fa = tsynthetic.random_features(96, 128, 64, rng)
     fa = fa._replace(desc=np.concatenate(
         [fa.desc[:-1], np.full((1, 16), 0xFFFFFFFF, np.uint32)]))
-    feats = convert.features_from_numpy(fa)
+    feats = convert.features_from_numpy(fa, "cpu")
     assert feats.desc.dtype == torch.int32 and feats.valid.dtype == torch.bool
     back = convert.to_numpy(feats)
     for field in fa._fields:
@@ -73,7 +73,7 @@ def test_convert_round_trip_keeps_descriptor_bits():
     assert back.desc.dtype == np.uint32
     # a coloc_tpu NamedTuple of jax arrays converts as it is
     jf = jtypes.Features(*(jnp.asarray(getattr(fa, f)) for f in fa._fields))
-    again = convert.features_from_numpy(jf)
+    again = convert.features_from_numpy(jf, "cpu")
     assert all(torch.equal(a, b) for a, b in zip(again, feats))
 
 
@@ -87,7 +87,7 @@ def test_consistent_mapdb_equals_reference():
     np.testing.assert_array_equal(got.X, np.asarray(want.X))
     np.testing.assert_array_equal(got.desc, np.asarray(want.desc))
     np.testing.assert_array_equal(got.valid, np.asarray(want.valid))
-    mapdb = convert.mapdb_from_numpy(got)
+    mapdb = convert.mapdb_from_numpy(got, "cpu")
     assert mapdb.X.shape == (300, 3) and int(mapdb.count) == 300
 
 

@@ -79,7 +79,7 @@ def test_kalman_update_all_matches_reference(gate_mode):
     opts_j = jcfg.FilterOptions(gate_mode=gate_mode)
     opts_t = tcfg.FilterOptions(gate_mode=gate_mode)
     jb = jkalman.init(D, opts_j)
-    tb = tkalman.init(D, opts_t)
+    tb = tkalman.init(D, opts_t, "cpu")
     rejected = 0
     for i in range(n):
         jb, jpose, jdist, jrej = jkalman.update_all(
@@ -101,7 +101,7 @@ def test_kalman_single_drone_update_matches_reference():
     rng = np.random.default_rng(3)
     zs, covs, rmses, avail = _measurements(rng, 8, D)
     opts_j, opts_t = jcfg.FilterOptions(), tcfg.FilterOptions()
-    jb, tb = jkalman.init(D, opts_j), tkalman.init(D, opts_t)
+    jb, tb = jkalman.init(D, opts_j), tkalman.init(D, opts_t, "cpu")
     for i in range(8):
         d = i % D
         jb, jpose, jdist, jrej = jkalman.update(
@@ -118,7 +118,7 @@ def test_kalman_single_drone_update_matches_reference():
     np.testing.assert_allclose(
         m.numpy(), np.asarray(jkalman.fill_measurement(
             jtypes.Pose(R=jnp.eye(3), C=jnp.asarray(zs[0, 0, :3])))), atol=1e-6)
-    fb = convert.filter_bank_from_numpy(convert.to_numpy(tb))
+    fb = convert.filter_bank_from_numpy(convert.to_numpy(tb), "cpu")
     for a, b in zip(fb, tb):
         assert torch.equal(a, b)
 
@@ -159,10 +159,10 @@ def test_intra_all_device_step_matches_reference():
 
     tcfg_ = tcfg.ColocConfig(num_drones=D, detector=tcfg.DetectorOptions(
         width=W, height=H, max_keypoints=KP, num_levels=LEVELS, fast_threshold=12))
-    tmapdb = convert.mapdb_from_numpy(ma)
+    tmapdb = convert.mapdb_from_numpy(ma, "cpu")
     tbank = pack_map_bank(tmapdb)
     jfb = jkalman.init(D, cfg.filter)
-    tfb = tkalman.init(D, tcfg_.filter)
+    tfb = tkalman.init(D, tcfg_.filter, "cpu")
     for step in range(2):
         jout = jsession._intra_all_device_step(
             cfg, keys, jnp.asarray(images), jmapdb, jbank, jnp.asarray(Ks),
