@@ -8,7 +8,9 @@ Drives the port's paths at the reference workload (a 752x480 camera, an
 hypotheses, NFA scoring): the headline match+localize op, the full-frame
 op (camera frame in, pose out), the session's D=2 frame step and the
 session itself (two drones' frames in, a bootstrapped map, filtered poses
-out). Phases:
+out); then the same with the AKAZE-MLDB frontend at the reference's CPU
+preset (bench.py's _bench_akaze and its AKAZE session), and the two-stage
+matcher against a 262144-row bank. Phases:
 
   1. device   — a CUDA device is required (there is no CPU path)
   2. build    — nvcc builds the kernels from coloc_tpu_torch/csrc
@@ -29,6 +31,16 @@ out). Phases:
                 SESSION_FRAMES frames of intra_pose_all, checked against
                 the ground-truth trajectory; init_map again through the
                 plain CPU path with the same five-point draws
+  4e akaze    — AKAZE_FRAMES frames of the AKAZE frame op (5000 keypoints,
+                Lowe-ratio matching against 8192 landmarks, P3P), stage
+                times, a profile, and the card's features against the
+                plain CPU path
+  4f akaze session — ColocSession with the AKAZE frontend (1024
+                keypoints, ratio matching, 4096 landmarks): init_map, then
+                SESSION_FRAMES frames of intra_pose_all
+  4g large map — match_with_map through the two-stage matcher and through
+                brute force on one 262144-row bank: equal accepted sets,
+                both ops' latency
   5. counters — every kernel of each path launched during its phase
 
 Any failed check raises and the script exits non-zero. The last two lines
@@ -53,6 +65,12 @@ FULL_FRAMES, STAGED_FRAMES, PROFILED_FRAMES = 30, 10, 3
 STEP_DRONES, STEPS = 2, 12
 SESSION_FRAMES = 10
 WARMUP, ITERS = 10, 100
+# the AKAZE frame op at the reference's CPU preset (bench.py _bench_akaze)
+# and the AKAZE session (bench.py config_akaze)
+AKAZE_KP, AKAZE_LANDMARKS = 5000, 8192
+AKAZE_FRAMES, AKAZE_STAGED, AKAZE_PROFILED = 20, 5, 2
+# the two-stage matcher: planted queries against a bank at its design size
+TWOSTAGE_Q, TWOSTAGE_T, TWOSTAGE_CALLS = 1024, 262144, 20
 # the least time of a kernel's work on an H100 SXM at 700 W: HBM bytes/s,
 # fp32 FLOP/s outside the tensor cores, int8 tensor-core OP/s
 HBM_BPS, FP32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
@@ -70,18 +88,29 @@ KERNEL_INFO = {
     "fivept_polish": ("coloc_tpu_torch/csrc/fivept_polish.cu",
                       "coloc_tpu/geometry/fivept.py:483"),
     "epi_rank": ("coloc_tpu_torch/csrc/epi_rank.cu", "coloc_tpu/ops/ransac_rank.py:272"),
+    "fed_octave": ("coloc_tpu_torch/csrc/fed_octave.cu", "coloc_tpu/ops/diffusion.py:193"),
+    "sample_raster": ("coloc_tpu_torch/csrc/sample_raster.cu",
+                      "coloc_tpu/ops/patches.py:216"),
+    "k2nn_group": ("coloc_tpu_torch/csrc/k2nn_group.cu", "coloc_tpu/ops/hamming.py:360"),
 }
 FRAME_KERNELS = ("k2nn", "p3p", "ransac_rank", "fast_nms", "extract")
+AKAZE_KERNELS = ("k2nn", "p3p", "ransac_rank", "fed_octave", "sample_raster")
+BOOTSTRAP_KERNELS = ("fivept_front", "fivept_dk", "fivept_polish", "epi_rank")
 # the kernels each driven path must launch
 PATH_KERNELS = {
     "4 slice": ("k2nn", "p3p", "ransac_rank"),
     "4b frame": FRAME_KERNELS,
     "4c step": FRAME_KERNELS,
-    "4d session": KERNEL_INFO.keys(),
+    "4d session": FRAME_KERNELS + BOOTSTRAP_KERNELS,
+    "4e akaze frame": AKAZE_KERNELS,
+    "4f akaze session": AKAZE_KERNELS + BOOTSTRAP_KERNELS,
+    "4g large map": ("k2nn_group", "k2nn"),
 }
 # the phase whose launches the kernels line reports
-LAUNCH_PHASE = {name: "4b frame" if name in FRAME_KERNELS else "4d session"
-                for name in KERNEL_INFO}
+LAUNCH_PHASE = {**{name: "4b frame" for name in FRAME_KERNELS},
+                **{name: "4d session" for name in BOOTSTRAP_KERNELS},
+                "fed_octave": "4e akaze frame", "sample_raster": "4e akaze frame",
+                "k2nn_group": "4g large map"}
 
 
 class SmokeFailure(RuntimeError):
@@ -116,6 +145,56 @@ def bound(nbytes: float, ops: float, peak: float) -> dict:
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def print_stages(torch, np, tag, run, n):
+    """Stage times of run(f, mark) over n frames: CUDA events recorded by
+    the path's `mark(stage)` hook after each stage, p50 per stage."""
+    stage_ms = {}
+    for f in range(n):
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        run(f, mark)
+        torch.cuda.synchronize()
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            stage_ms.setdefault(name, []).append(a.elapsed_time(b))
+    print(f"[{tag} stages] p50 over {n} frames, CUDA events: " + ", ".join(
+        f"{k} {np.percentile(v, 50):.3f}" for k, v in stage_ms.items())
+        + f" ms; sum {sum(np.percentile(v, 50) for v in stage_ms.values()):.3f} ms")
+
+
+def profile_frames(torch, tag, run, n):
+    """run(f) for n frames under torch.profiler: device kernels a frame,
+    device busy and idle share, the largest device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in range(n):
+            run(f)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if busy_us <= 0:
+        print(f"[{tag} profile] the profiler saw no device time: not measured")
+        return
+    print(f"[{tag} profile] {len(kernels) / n:.0f} device kernels a frame, device "
+          f"busy {busy_us / n / 1e3:.3f} ms of {wall_us / n / 1e3:.3f} ms a frame "
+          f"({100.0 - 100.0 * busy_us / wall_us:.1f}% idle, profiler on)")
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[{tag} profile] device us a frame, largest kernels: " + "; ".join(
+        f"{us / n:.1f} {name[:60]}" for name, us in top))
 
 
 def percentiles(np, ms):
@@ -188,12 +267,13 @@ def main() -> int:
     from coloc_tpu_torch.geometry import camera as cam_ops
     from coloc_tpu_torch.geometry import fivept, p3p
     from coloc_tpu_torch.io import synthetic
-    from coloc_tpu_torch.matching import match_pair, match_with_map, pack_map_bank
-    from coloc_tpu_torch.ops import (_build, dispatch, fast, hamming, patches,
+    from coloc_tpu_torch.matching import (match_pair, match_with_map, pack_map_bank,
+                                          pack_map_bank_twostage)
+    from coloc_tpu_torch.ops import (_build, diffusion, dispatch, fast, hamming, patches,
                                      pyramid, ransac_rank)
     from coloc_tpu_torch.ransac import sample_indices
     from coloc_tpu_torch.sfm.localize import localize_image
-    from coloc_tpu_torch.types import Features
+    from coloc_tpu_torch.types import Features, MapDB
 
     # the port must come from this checkout, so its kernels build from here
     pkg = Path(coloc_tpu_torch.__file__).resolve().parent
@@ -462,6 +542,141 @@ def main() -> int:
         plain_ms=cuda_ms(lambda: ransac_rank.epi_rank_plain(*eops), 2, 20), library_ms=None,
         **bound((Hm * 28 + 28 * Mc + 1) * 4, Hm * Mc * 70.0, FP32_FLOPS))
     del fr_k, fr_p, po_k, po_p, rk, rp
+
+    # B10: the bench frame's four octaves (B=1), each octave's input the
+    # last sublevel of the one before halved, as build_scale_space_batch
+    # feeds them; then octave 0 of both views (B=2, two k^2). The kernel
+    # repeats the twin's arithmetic in its order (-fmad=false): bit-equal.
+    # Bound: the input and the 4 S output planes once; ~22 flops a pixel
+    # for the first conductivity, ~21 an explicit step, ~58 a sublevel's
+    # Scharr passes and response.
+    images01 = diffusion._true_div(views, 255.0)
+    k2_01 = diffusion.contrast_factor(images01) ** 2
+    schedule = diffusion.octave_schedule(4, 4, 1.6, 0.25)
+    L_o, k2_o = images01[:1].contiguous(), k2_01[:1].contiguous()
+    fed_cases = []
+    for o, (_, cycles, s4) in enumerate(schedule):
+        fed_cases.append((f"octave {o}", L_o, k2_o, cycles, s4))
+        L_o = diffusion.fed_octave_plain(L_o, k2_o, cycles, s4)[0][:, -1, ::2, ::2].contiguous()
+    fed_cases.append(("octave 0, B=2", images01.contiguous(), k2_01.contiguous(),
+                      *schedule[0][1:]))
+    fed = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
+    fed_bytes = fed_ops = 0.0
+    for tag, L_c, k2_c, cycles, s4 in fed_cases:
+        out_k = diffusion._fed_octave_cuda(L_c, k2_c, cycles, s4)
+        out_p = diffusion.fed_octave_plain(L_c, k2_c, cycles, s4)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
+        check(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
+              f"fed_octave {tag} differs from its plain twin (max |diff| {err})")
+        ms = cuda_ms(lambda: diffusion._fed_octave_cuda(L_c, k2_c, cycles, s4), 3, 20)
+        pms = cuda_ms(lambda: diffusion.fed_octave_plain(L_c, k2_c, cycles, s4), 2, 10)
+        px = L_c.numel()
+        nbytes = px * 4 * (1 + 4 * len(cycles)) + 4 * L_c.shape[0]
+        ops = px * (22.0 + sum(21.0 * len(taus) + 58.0 for taus in cycles))
+        b = bound(nbytes, ops, FP32_FLOPS)
+        print(f"[3 fed_octave] {tag} {tuple(L_c.shape)}, {sum(map(len, cycles))} steps: "
+              f"bit-equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']})")
+        fed["max_abs_err"] = max(fed["max_abs_err"], err)
+        if L_c.shape[0] == 1:        # a frame's four launches
+            fed["ms"] += ms
+            fed["plain_ms"] += pms
+            fed_bytes += nbytes
+            fed_ops += ops
+    results["fed_octave"] = dict(fed, **bound(fed_bytes, fed_ops, FP32_FLOPS))
+    del out_k, out_p
+
+    # B11: the AKAZE frame's two sampler calls at 5000 keypoints, their
+    # inputs captured from the frontend's own calls (orientation: 2
+    # channels, 48 rows; descriptor: 3 channels, 64 rows). A gather: exact.
+    # Bound: bytes, the outputs and coordinates once and each distinct
+    # raster element the samples read.
+    opts_a = config.DetectorOptions(width=W, height=H, max_keypoints=AKAZE_KP,
+                                    num_levels=LEVELS, backend="akaze")
+    sampler_calls = []
+    real_sampler = patches.sample_raster_flat
+
+    def capture(*args, **kw):
+        sampler_calls.append((args, kw))
+        return real_sampler(*args, **kw)
+
+    patches.sample_raster_flat = capture
+    try:
+        frontend.detect_and_describe(views[0], opts_a)
+    finally:
+        patches.sample_raster_flat = real_sampler
+    check(len(sampler_calls) == 2, f"the AKAZE frame made {len(sampler_calls)} sampler calls")
+    samp = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
+    samp_bytes = 0.0
+    for (src2, stride, row0_s, col0_s, lx, ly), kw in sampler_calls:
+        C, ph, pw = kw["C"], kw.get("ph", patches.PH), kw["pw"]
+        args = (src2, stride, row0_s, col0_s, lx, ly, C, ph, pw)
+        sk = patches._sample_raster_cuda(*args)
+        sp = patches.sample_raster_plain(*args)
+        torch.cuda.synchronize()
+        err = float((sk - sp).abs().max())
+        check(torch.equal(sk, sp), f"sample_raster C={C} differs from its plain twin "
+              f"(max |diff| {err})")
+        ms = cuda_ms(lambda: patches._sample_raster_cuda(*args))
+        pms = cuda_ms(lambda: patches.sample_raster_plain(*args), 2, 20)
+        K_s, NS = lx.shape
+        ci = torch.round(torch.clamp(lx, 0, pw - 1)).long()
+        ri = torch.round(torch.clamp(ly, 0, ph - 1)).long()
+        read = torch.cat([((r0[:, None] + ri) * src2.shape[1] + c0[:, None] + ci).reshape(-1)
+                          for r0, c0 in (patches._sample_windows(src2, stride, row0_s, col0_s,
+                                                                 c, ph, pw)
+                                         for c in range(C))])
+        nbytes = C * K_s * NS * 4 + 2 * K_s * NS * 4 + 2 * K_s * 4 + torch.unique(read).numel() * 2
+        print(f"[3 sample_raster] C={C}, {ph}x{pw} windows, K={K_s}, NS={NS}, src "
+              f"{tuple(src2.shape)} bf16: exact; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {nbytes / HBM_BPS * 1e3:.5f} ms (bytes)")
+        samp["max_abs_err"] = max(samp["max_abs_err"], err)
+        samp["ms"] += ms
+        samp["plain_ms"] += pms
+        samp_bytes += nbytes
+    results["sample_raster"] = dict(samp, **bound(samp_bytes, 0.0, FP32_FLOPS))
+    del sk, sp, sampler_calls
+
+    # B12: matching-shaped queries (each a bank row with ~40 bits flipped,
+    # tests/test_hamming.py's construction) against a 262144-row bank, 5%
+    # of its rows invalid, one best row duplicated in another group. Integer
+    # keys: exact. Bound: operations counted as the TPU kernel's int8
+    # product (2 Q T 128).
+    trng = np.random.default_rng(SEED + 12)
+    td = trng.integers(0, 2 ** 32, (TWOSTAGE_T, 16), dtype=np.uint64).astype(np.uint32)
+    tv = trng.random(TWOSTAGE_T) > 0.05
+    qd = trng.integers(0, 2 ** 32, (TWOSTAGE_Q, 16), dtype=np.uint64).astype(np.uint32)
+    slots = trng.choice(np.flatnonzero(tv), TWOSTAGE_Q + 1, replace=False)
+    flips = trng.integers(0, 512, (TWOSTAGE_Q, 40))
+    planted = qd.copy()
+    for j in range(flips.shape[1]):
+        planted[np.arange(TWOSTAGE_Q), flips[:, j] // 32] ^= (
+            np.uint32(1) << (flips[:, j] % 32).astype(np.uint32))
+    td[slots[:TWOSTAGE_Q]] = planted
+    td[slots[TWOSTAGE_Q]] = planted[0]
+    t_desc_g = torch.from_numpy(td.view(np.int32)).to(dev)
+    t_valid_g = torch.from_numpy(tv).to(dev)
+    q_desc_g = torch.from_numpy(qd.view(np.int32)).to(dev)
+    mapdb_g = MapDB(X=torch.zeros((TWOSTAGE_T, 3), device=dev), desc=t_desc_g,
+                    valid=t_valid_g)
+    ts_bank = pack_map_bank_twostage(mapdb_g)
+    q_pf = hamming.prefilter_words(q_desc_g)
+    gk = hamming._group_top2_cuda(q_pf, ts_bank)
+    gp = hamming.group_top2_plain(q_pf, ts_bank)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    check(all(torch.equal(a, b) for a, b in zip(gk, gp)),
+          f"k2nn_group differs from its plain twin (max |diff| {err})")
+    G = ts_bank.pf.shape[0] // hamming._GROUP
+    print(f"[3 k2nn_group] Q={TWOSTAGE_Q} x T={TWOSTAGE_T} ({G} groups): exact")
+    results["k2nn_group"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: hamming._group_top2_cuda(q_pf, ts_bank)),
+        plain_ms=cuda_ms(lambda: hamming.group_top2_plain(q_pf, ts_bank), 2, 10),
+        library_ms=None,
+        **bound(TWOSTAGE_Q * 16 + ts_bank.pf.shape[0] * 20 + 2 * TWOSTAGE_Q * G * 4,
+                2.0 * TWOSTAGE_Q * TWOSTAGE_T * 128, INT8_OPS))
+    del gk, gp
     for name, r in results.items():
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         print(f"[3 {name}] kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
@@ -536,12 +751,12 @@ def main() -> int:
     mapdb_f = convert.mapdb_from_numpy(ma_f._replace(X=X), dev)
     bank_f = pack_map_bank(mapdb_f)
 
-    def check_pose(tag, pwc, mm, inl):
+    def check_pose(tag, pwc, mm, inl, n_moved=n_out):
         rot_err, c_err = pose_errors(torch, pwc.pose.R, pwc.pose.C)
         check(bool(pwc.success), f"{tag}: localization failed")
         check(rot_err < 1e-3, f"{tag}: rotation error {rot_err:.3e} rad")
         check(c_err < 1e-2, f"{tag}: center error {c_err:.3e} m")
-        check(not bool((inl & mm.mask & (mm.idx < n_out)).any()),
+        check(not bool((inl & mm.mask & (mm.idx < n_moved)).any()),
               f"{tag}: a moved landmark is an inlier")
 
     def full_frame(f, mark=None):
@@ -582,48 +797,8 @@ def main() -> int:
           f"{percentiles(np, lat_ms[1:])}; frame 0 {lat_ms[0]:.3f} ms  ({card})")
     print(f"[4b frame] kernel launches a frame: {per_frame}")
 
-    stage_ms = {}
-    for f in range(STAGED_FRAMES):
-        marks = [("start", torch.cuda.Event(enable_timing=True))]
-        marks[0][1].record()
-
-        def mark(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((name, ev))
-
-        full_frame(100 + f, mark)
-        torch.cuda.synchronize()
-        for (_, a), (name, b) in zip(marks, marks[1:]):
-            stage_ms.setdefault(name, []).append(a.elapsed_time(b))
-    print(f"[4b stages] p50 over {STAGED_FRAMES} frames, CUDA events: " + ", ".join(
-        f"{k} {np.percentile(v, 50):.3f}" for k, v in stage_ms.items())
-        + f" ms; sum {sum(np.percentile(v, 50) for v in stage_ms.values()):.3f} ms")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for f in range(PROFILED_FRAMES):
-            full_frame(200 + f)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    if busy_us > 0:
-        print(f"[4b profile] {len(kernels) / PROFILED_FRAMES:.0f} device kernels a "
-              f"frame, device busy {busy_us / PROFILED_FRAMES / 1e3:.3f} ms of "
-              f"{wall_us / PROFILED_FRAMES / 1e3:.3f} ms a frame "
-              f"({100.0 - 100.0 * busy_us / wall_us:.1f}% idle, profiler on)")
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        print("[4b profile] device us a frame, largest kernels: " + "; ".join(
-            f"{us / PROFILED_FRAMES:.1f} {name[:60]}" for name, us in top))
-    else:
-        print("[4b profile] the profiler saw no device time: not measured")
+    print_stages(torch, np, "4b", lambda f, mark: full_frame(100 + f, mark), STAGED_FRAMES)
+    profile_frames(torch, "4b", lambda f: full_frame(200 + f), PROFILED_FRAMES)
 
     # the same image through the port's plain CPU path
     fc = convert.to_numpy(frontend.detect_and_describe(torch.from_numpy(frame), opts))
@@ -679,26 +854,6 @@ def main() -> int:
     first = {0: frames[0][0], 1: frames[1][0]}
     cfg_d = config.ColocConfig(num_drones=2, detector=opts)    # model E, 4096 landmarks
     Ks2, dists2 = np.stack([K, K]), np.zeros((2, 3), np.float32)
-    sess = session.ColocSession(cfg_d, Ks2, dists2, seed=SEED)  # cuda:0 untold
-    check(sess.device == dev, f"ColocSession chose {sess.device}, not {dev}")
-    dispatch.reset_launch_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    ok = sess.init_map(first)
-    end.record()
-    torch.cuda.synchronize()
-    init_ms = start.elapsed_time(end)
-    check(ok and sess.map_ready, "init_map failed")
-    n_lm = int(sess.mapdb.valid.sum())
-    ba, geo = sess.bootstrap_ba, sess.bootstrap_geo
-    check(n_lm >= 8, f"init_map kept {n_lm} landmarks < 8")
-    check(ba.cov.shape == (6, 6) and bool(torch.isfinite(ba.cov).all()),
-          "drone 1's bootstrap covariance is not a finite 6x6")
-    init_counts = dispatch.launch_counts()
-    print(f"[4d init_map] {init_ms:.3f} ms; {int(geo.n_inliers)} E inliers, {n_lm} "
-          f"landmarks, BA {ba.iterations} LM iterations, rmse {float(ba.rmse):.4f} px, "
-          f"launches {init_counts}  ({card})")
 
     def rot_err(R, R_ref):
         """Angle between two rotations, rad: ||R - R_ref||_F = 2 sqrt(2)
@@ -706,38 +861,66 @@ def main() -> int:
         d = torch.linalg.norm((R - R_ref).double()) / (2.0 * 2.0 ** 0.5)
         return float(2.0 * torch.asin(torch.clamp(d, max=1.0)))
 
-    sess_ms, errs, centres = [], [], []
-    accepted = torch.zeros(2, dtype=torch.int32)
-    for f in range(1, SESSION_FRAMES + 1):
-        sess.frame = f
+    def drive_session(tag, cfg_x):
+        """A ColocSession on cuda:0 unasked: init_map on frame 0 of drones 0
+        and 1, then SESSION_FRAMES frames of intra_pose_all, each checked
+        against the ground truth. -> the session and its launch counts."""
+        sess = session.ColocSession(cfg_x, Ks2, dists2, seed=SEED)  # cuda:0 untold
+        check(sess.device == dev, f"ColocSession chose {sess.device}, not {dev}")
+        dispatch.reset_launch_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = sess.intra_pose_all({d: frames[d][f] for d in range(2)})
+        ok = sess.init_map(first)
         end.record()
         torch.cuda.synchronize()
-        sess_ms.append(start.elapsed_time(end))
-        for d in range(2):
-            check(bool(out[d].success), f"session frame {f} drone {d}: localization failed")
-            R_gt = torch.from_numpy(traj[d][0][f] @ traj[0][0][0].T).to(dev)
-            errs.append(rot_err(out[d].pose.R, R_gt))
-        accepted += torch.stack([out[d].success for d in range(2)]).cpu().int() \
-            * (~sess.last_rejected.cpu()).int()
-        check(torch.equal(sess.filter_bank.steps.cpu(), accepted),
-              f"session frame {f}: filter steps {sess.filter_bank.steps.tolist()} "
-              f"!= accepted {accepted.tolist()}")
-        centres.append(out[0].pose.C.cpu())
-    counts["4d session"] = dispatch.launch_counts()
-    errs_deg = np.degrees(np.asarray(errs))
-    check(np.median(errs_deg) < 1.0 and errs_deg.max() < 2.0,
-          f"session rotation error median {np.median(errs_deg):.3f}, max "
-          f"{errs_deg.max():.3f} deg")
-    check(float(centres[-1][0]) > float(centres[0][0]),
-          "drone 0's estimated centre does not move along +x")
-    print(f"[4d session] {SESSION_FRAMES} frames of 2 drones ok; rotation error median "
-          f"{np.median(errs_deg):.4f}, max {errs_deg.max():.4f} deg; filter steps "
-          f"{sess.filter_bank.steps.tolist()}; intra_pose_all {percentiles(np, sess_ms[1:])}; "
-          f"frame 1 {sess_ms[0]:.3f} ms  ({card})")
+        init_ms = start.elapsed_time(end)
+        check(ok and sess.map_ready, f"{tag}: init_map failed")
+        n_lm = int(sess.mapdb.valid.sum())
+        ba, geo = sess.bootstrap_ba, sess.bootstrap_geo
+        check(n_lm >= 8, f"{tag}: init_map kept {n_lm} landmarks < 8")
+        check(ba.cov.shape == (6, 6) and bool(torch.isfinite(ba.cov).all()),
+              f"{tag}: drone 1's bootstrap covariance is not a finite 6x6")
+        print(f"[{tag} init_map] {init_ms:.3f} ms; {int(geo.n_inliers)} E inliers, {n_lm} "
+              f"landmarks, BA {ba.iterations} LM iterations, rmse {float(ba.rmse):.4f} px, "
+              f"launches {dispatch.launch_counts()}  ({card})")
+
+        sess_ms, errs, centres = [], [], []
+        accepted = torch.zeros(2, dtype=torch.int32)
+        for f in range(1, SESSION_FRAMES + 1):
+            sess.frame = f
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = sess.intra_pose_all({d: frames[d][f] for d in range(2)})
+            end.record()
+            torch.cuda.synchronize()
+            sess_ms.append(start.elapsed_time(end))
+            for d in range(2):
+                check(bool(out[d].success),
+                      f"{tag} frame {f} drone {d}: localization failed")
+                R_gt = torch.from_numpy(traj[d][0][f] @ traj[0][0][0].T).to(dev)
+                errs.append(rot_err(out[d].pose.R, R_gt))
+            accepted += torch.stack([out[d].success for d in range(2)]).cpu().int() \
+                * (~sess.last_rejected.cpu()).int()
+            check(torch.equal(sess.filter_bank.steps.cpu(), accepted),
+                  f"{tag} frame {f}: filter steps {sess.filter_bank.steps.tolist()} "
+                  f"!= accepted {accepted.tolist()}")
+            centres.append(out[0].pose.C.cpu())
+        launches = dispatch.launch_counts()
+        errs_deg = np.degrees(np.asarray(errs))
+        check(np.median(errs_deg) < 1.0 and errs_deg.max() < 2.0,
+              f"{tag} rotation error median {np.median(errs_deg):.3f}, max "
+              f"{errs_deg.max():.3f} deg")
+        check(float(centres[-1][0]) > float(centres[0][0]),
+              f"{tag}: drone 0's estimated centre does not move along +x")
+        print(f"[{tag} session] {SESSION_FRAMES} frames of 2 drones ok; rotation error "
+              f"median {np.median(errs_deg):.4f}, max {errs_deg.max():.4f} deg; filter "
+              f"steps {sess.filter_bank.steps.tolist()}; intra_pose_all "
+              f"{percentiles(np, sess_ms[1:])}; frame 1 {sess_ms[0]:.3f} ms  ({card})")
+        return sess, launches
+
+    sess, counts["4d session"] = drive_session("4d", cfg_d)
 
     # init_map on the card and through the plain CPU path, the same
     # five-point draws: both bootstrap nearly the same map
@@ -761,6 +944,8 @@ def main() -> int:
     check(dR < 1e-3 and dC < 5e-3, f"card vs CPU: drone 1 {dR:.2e} rad, baseline {dC:.2e} rad")
 
     # where the bootstrap's device time goes: init_map under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         s_gpu.init_map(first, sample_idx=draws)
@@ -778,6 +963,121 @@ def main() -> int:
               f"B6-B9 {ours / 1e3:.4f} ms = {100.0 * ours / busy_us:.2f}% of device time")
     else:
         print("[4d profile] the profiler saw no device time: not measured")
+
+    # ---- phase 4e: the AKAZE frame op (bench.py _bench_akaze) -----------
+    from coloc_tpu_torch import akaze
+
+    matcher_a = config.MatcherOptions(mode="ratio")
+    fa_np = convert.to_numpy(frontend.detect_and_describe(frame_t, opts_a))
+    n_valid_a = int(fa_np.valid.sum())
+    check(n_valid_a >= 4900, f"AKAZE frame: {n_valid_a} valid keypoints < 4900")
+    rng = np.random.default_rng(SEED)
+    ma_a = synthetic.consistent_mapdb(fa_np, K, AKAZE_LANDMARKS, rng)
+    n_out_a = int(OUTLIER_FRAC * AKAZE_KP)
+    X = ma_a.X.copy()
+    X[:n_out_a] = rng.uniform(-50.0, 50.0, (n_out_a, 3)).astype(np.float32)
+    mapdb_a = convert.mapdb_from_numpy(ma_a._replace(X=X), dev)
+    bank_a = pack_map_bank(mapdb_a)
+
+    def akaze_frame(f, mark=None):
+        gen = torch.Generator(device=dev).manual_seed(5000 + f)
+        if mark is None:
+            feats = frontend.detect_and_describe(frame_t, opts_a)
+        else:
+            feats = Features(*(a[0] for a in akaze.detect_and_describe_akaze_batch(
+                frame_t[None], opts_a, mark)))
+        mm = match_with_map(feats, mapdb_a, matcher_a, bank=bank_a)
+        if mark is not None:
+            mark("match")
+        pwc, inl = localize_image(feats, mm, mapdb_a, cam, cfg.ransac, cfg.refiner,
+                                  generator=gen)
+        if mark is not None:
+            mark("localize")
+        return feats, mm, pwc, inl
+
+    lat_ms, tracks = [], []
+    dispatch.reset_launch_counts()
+    for f in range(AKAZE_FRAMES + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        feats, mm, pwc, inl = akaze_frame(f)
+        end.record()
+        torch.cuda.synchronize()
+        lat_ms.append(start.elapsed_time(end))
+        check_pose(f"AKAZE frame {f}", pwc, mm, inl, n_out_a)
+        check(int(feats.valid.sum()) >= 4900, f"AKAZE frame {f}: < 4900 keypoints")
+        tracks.append(int(pwc.n_tracks))
+    counts["4e akaze frame"] = dispatch.launch_counts()
+    per_frame = {k: v / (AKAZE_FRAMES + 1) for k, v in counts["4e akaze frame"].items()}
+    print(f"[4e akaze frame] {AKAZE_FRAMES + 1} frames ok ({n_valid_a} keypoints, "
+          f"{int(mm.mask.sum())} matches, n_tracks {min(tracks)}-{max(tracks)}); latency "
+          f"after frame 0: {percentiles(np, lat_ms[1:])}; frame 0 {lat_ms[0]:.3f} ms  ({card})")
+    print(f"[4e akaze frame] kernel launches a frame: {per_frame}")
+    print_stages(torch, np, "4e", lambda f, mark: akaze_frame(100 + f, mark), AKAZE_STAGED)
+    profile_frames(torch, "4e", lambda f: akaze_frame(200 + f), AKAZE_PROFILED)
+
+    # the same image through the port's plain CPU path
+    fc = convert.to_numpy(frontend.detect_and_describe(torch.from_numpy(frame), opts_a))
+    shared, bits = shared_features(np, fa_np, fc)
+    print(f"[4e reference] card vs CPU plain path: {shared:.4f} of keypoints "
+          f"shared, {bits:.4f} of descriptor bits equal on them")
+    check(shared >= 0.98, f"AKAZE card vs CPU: {shared:.4f} of keypoints shared < 0.98")
+    check(bits >= 0.99, f"AKAZE card vs CPU: {bits:.4f} of bits equal < 0.99")
+
+    # ---- phase 4f: the AKAZE session (bench.py config_akaze) -------------
+    cfg_a = config.ColocConfig(
+        num_drones=2, matcher=matcher_a, max_landmarks=LANDMARKS,
+        detector=config.DetectorOptions(width=W, height=H, max_keypoints=KP,
+                                        num_levels=LEVELS, backend="akaze"))
+    _, counts["4f akaze session"] = drive_session("4f", cfg_a)
+
+    # ---- phase 4g: the large-map matcher, two-stage against brute force ---
+    # phase 3's bank (262144 rows, 5% invalid) and planted queries; the
+    # accept decisions at the margin threshold must be brute force's
+    feats_g = Features(
+        xy=torch.zeros((TWOSTAGE_Q, 2), device=dev),
+        score=torch.ones(TWOSTAGE_Q, device=dev),
+        scale=torch.zeros(TWOSTAGE_Q, dtype=torch.int32, device=dev),
+        angle=torch.zeros(TWOSTAGE_Q, device=dev), desc=q_desc_g,
+        valid=torch.ones(TWOSTAGE_Q, dtype=torch.bool, device=dev))
+    bf_bank = pack_map_bank(mapdb_g)
+    mopts = config.MatcherOptions()
+    dispatch.reset_launch_counts()
+    ms_g = {"two-stage": [], "brute force": []}
+    for i in range(TWOSTAGE_CALLS + 1):
+        # alternate the order of the two ops from call to call
+        for op in (("two-stage", "brute force") if i % 2 else ("brute force", "two-stage")):
+            kw = {"twostage_bank": ts_bank} if op == "two-stage" else {"bank": bf_bank}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = match_with_map(feats_g, mapdb_g, mopts, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            if i > 0:
+                ms_g[op].append(start.elapsed_time(end))
+            if op == "two-stage":
+                m_ts = m
+            else:
+                m_bf = m
+    counts["4g large map"] = dispatch.launch_counts()
+    n_acc = int(m_bf.mask.sum())
+    check(torch.equal(m_ts.mask, m_bf.mask),
+          f"two-stage accepts {int(m_ts.mask.sum())} queries, brute force {n_acc}, "
+          f"{int((m_ts.mask != m_bf.mask).sum())} decisions differ")
+    check(torch.equal(m_ts.idx[m_bf.mask], m_bf.idx[m_bf.mask])
+          and torch.equal(m_ts.best[m_bf.mask], m_bf.best[m_bf.mask]),
+          "two-stage best differs from brute force on an accepted query")
+    planted_hit = float((m_bf.idx.cpu().numpy() == slots[:TWOSTAGE_Q]).mean())
+    check(n_acc >= 0.9 * TWOSTAGE_Q and planted_hit >= 0.9,
+          f"brute force accepts {n_acc}, finds {planted_hit:.3f} of the planted rows")
+    p50 = {k: float(np.percentile(v, 50)) for k, v in ms_g.items()}
+    print(f"[4g large map] Q={TWOSTAGE_Q} x T={TWOSTAGE_T}: accepted sets equal ({n_acc} "
+          f"queries, {planted_hit:.4f} on their planted row); match_with_map two-stage "
+          f"{percentiles(np, ms_g['two-stage'])}, brute force "
+          f"{percentiles(np, ms_g['brute force'])} over {TWOSTAGE_CALLS} calls each; "
+          f"brute force / two-stage {p50['brute force'] / p50['two-stage']:.2f}  ({card})")
 
     # ---- phase 5: each path went through its kernels -------------------
     for phase, names in PATH_KERNELS.items():

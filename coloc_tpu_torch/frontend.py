@@ -16,6 +16,10 @@ Keypoint coords are rescaled to full resolution by scale_factor**level.
 Output is a fixed-capacity Features bank (max_keypoints + validity mask).
 coloc_tpu specialises B == 1 for TPU speed with identical results; the
 port has one path for every B.
+
+DetectorOptions(backend="akaze") selects the AKAZE-MLDB backend
+(akaze.py, the reference's CPU detector) instead; any other name runs
+TRIP, as in coloc_tpu.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from coloc_tpu_torch import akaze
 from coloc_tpu_torch.config import DetectorOptions
 from coloc_tpu_torch.ops import descriptor as desc_ops
 from coloc_tpu_torch.ops import fast as fast_ops
@@ -43,25 +48,17 @@ def _no_mark(stage: str) -> None:
     pass
 
 
-def _check_backend(opts: DetectorOptions) -> None:
-    # never TRIP silently in AKAZE's place; other names run TRIP, as in
-    # coloc_tpu
-    if opts.backend == "akaze":
-        raise NotImplementedError(
-            "the AKAZE backend is not ported yet (ROADMAP A9)")
-
-
 def detect_and_describe(image: torch.Tensor, opts: DetectorOptions) -> Features:
     """image (H, W) uint8/float32 grayscale -> Features (fixed capacity)."""
-    _check_backend(opts)
-    feats = _detect_and_describe_trip_batch(image[None], opts)
+    feats = detect_and_describe_batch(image[None], opts)
     return Features(*(a[0] for a in feats))
 
 
 def detect_and_describe_batch(images: torch.Tensor,
                               opts: DetectorOptions) -> Features:
     """(B, H, W) -> Features with a leading batch axis."""
-    _check_backend(opts)
+    if opts.backend == "akaze":
+        return akaze.detect_and_describe_akaze_batch(images, opts)
     return _detect_and_describe_trip_batch(images, opts)
 
 

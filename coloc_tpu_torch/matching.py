@@ -43,11 +43,24 @@ def pack_map_bank(mapdb: MapDB) -> hamming.Bank:
     return hamming.pack_bank(mapdb.desc, mapdb.valid)
 
 
+def pack_map_bank_twostage(mapdb: MapDB) -> hamming.TwoStageBank:
+    """The resident bank of the two-stage large-map matcher (128-bit group
+    prefilter + exact 512-bit re-rank, ops/hamming.hamming_2nn_twostage)."""
+    return hamming.pack_bank_twostage(mapdb.desc, mapdb.valid)
+
+
 def match_with_map(query: Features, mapdb: MapDB, opts: MatcherOptions,
-                   bank: Optional[hamming.Bank] = None) -> Matches:
+                   bank: Optional[hamming.Bank] = None,
+                   twostage_bank: Optional[hamming.TwoStageBank] = None) -> Matches:
     """Frame-vs-map matching (matchSceneWithMap parity); idx indexes the
-    map's landmark bank. `bank`: a resident bank from pack_map_bank."""
-    if bank is None:
-        bank = pack_map_bank(mapdb)
-    idx, best, second = hamming.hamming_2nn_bank(query.desc, query.valid, bank)
+    map's landmark bank. `twostage_bank` (from pack_map_bank_twostage)
+    takes precedence, then `bank` (a resident bank from pack_map_bank),
+    then the map packed for this call, as in coloc_tpu."""
+    if twostage_bank is not None:
+        idx, best, second = hamming.hamming_2nn_twostage(
+            query.desc, query.valid, twostage_bank)
+    else:
+        if bank is None:
+            bank = pack_map_bank(mapdb)
+        idx, best, second = hamming.hamming_2nn_bank(query.desc, query.valid, bank)
     return _accept(idx, best, second, query.valid, opts, opts.margin_threshold)

@@ -1,12 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
 Every `coloc_tpu_torch/csrc/*.cu` is compiled by nvcc for sm_90a into ONE
-shared library with a plain C interface, loaded with ctypes. The library is
-built on first use into `coloc_tpu_torch/_build/` (git-ignored), named by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the cached file. Nothing here includes PyTorch's
-headers: a build takes seconds, not the minutes of a torch extension, and
-needs no ninja.
+shared library with a plain C interface, loaded with ctypes: one nvcc per
+source, all started together, then one link, so a build takes about as
+long as its slowest source. The library is built on first use into
+`coloc_tpu_torch/_build/` (git-ignored), named by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads the cached
+file. Nothing here includes PyTorch's headers: a build takes seconds, not
+the minutes of a torch extension, and needs no ninja.
 
 A failed build raises with nvcc's output. There is no fallback.
 
@@ -22,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -29,10 +31,10 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *_ARCH, "-std=c++17", "-O3", "-fmad=false",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -50,6 +52,10 @@ _SIGNATURES = {
     "coloc_fivept_dk": [_P, _P, _P, _P, _I, _I, _P],
     "coloc_fivept_polish": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "coloc_epi_rank": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the last three pointers of fed_octave are host arrays (the schedule)
+    "coloc_fed_octave": [_P] * 7 + [_I] * 4 + [_P] * 3 + [_I, _P],
+    "coloc_sample_raster": [_P] * 6 + [_I] * 8 + [_I, _P],
+    "coloc_k2nn_group": [_P] * 5 + [_I] * 3 + [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -85,20 +91,45 @@ def library_path(nvcc: str) -> Path:
 
 
 def _compile(nvcc: str, out: Path) -> None:
+    """Compile every source in its own nvcc process, all at once (output to
+    a log file each, so no pipe fills), wait for all, then link."""
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    work = Path(tempfile.mkdtemp(prefix="obj-", dir=BUILD_DIR))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, out)
+    jobs = []
+    try:
+        for src in sorted(CSRC.glob("*.cu")):
+            obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            with open(log, "w") as f:
+                proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+            jobs.append((cmd, obj, log, proc))
+        logs, failed = [], []
+        for cmd, _, log, proc in jobs:
+            rc = proc.wait()
+            logs.append(log.read_text())
+            if rc != 0:
+                failed.append(f"nvcc failed ({rc}): {' '.join(cmd)}")
+        if not failed:
+            cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *[str(j[1]) for j in jobs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}")
+        build_seconds = time.perf_counter() - t0
+        build_log = "".join(logs)
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("\n".join(failed) + "\n" + build_log)
+        os.replace(tmp, out)
+    finally:
+        for job in jobs:    # none is left running, even on an interrupt
+            if job[3].poll() is None:
+                job[3].kill()
+                job[3].wait()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def load() -> ctypes.CDLL:

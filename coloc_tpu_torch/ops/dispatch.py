@@ -18,7 +18,8 @@ from typing import Dict
 import torch
 
 KERNELS = ("k2nn", "p3p", "ransac_rank", "fast_nms", "extract",
-           "fivept_front", "fivept_dk", "fivept_polish", "epi_rank")
+           "fivept_front", "fivept_dk", "fivept_polish", "epi_rank",
+           "fed_octave", "sample_raster", "k2nn_group")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 

@@ -69,13 +69,14 @@ def fast_score_map(image: torch.Tensor, threshold: float) -> torch.Tensor:
 
 
 def nms3(score: torch.Tensor) -> torch.Tensor:
-    """3x3 non-max suppression, zero outside the raster; a pixel survives
-    only if no earlier (raster-order) neighbour has an equal score."""
-    h, w = score.shape
+    """3x3 non-max suppression of (..., h, w) rasters, each zero outside;
+    a pixel survives only if no earlier (raster-order) neighbour has an
+    equal score. Leading dimensions are a batch (jax.vmap(nms3))."""
+    h, w = score.shape[-2:]
     p = F.pad(score, (1, 1, 1, 1))
 
     def nb(dy, dx):
-        return p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+        return p[..., 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
 
     neighborhood_max = torch.stack(
         [nb(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]).amax(dim=0)

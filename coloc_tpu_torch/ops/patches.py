@@ -12,9 +12,11 @@ that window at nearest pixels.
   extract_patches      — B5: the CUDA kernel csrc/extract.cu on a CUDA
                          tensor, extract_patches_plain on CPU
   sample_nearest       — nearest samples rounded to bf16 (a gather)
-
-sample_raster / _sample_raster_kernel (B11, the AKAZE path) are not
-ported yet (ROADMAP A9).
+  sample_raster_flat   — B11, the AKAZE path: nearest samples of C channel
+                         windows of a bf16 row-stacked raster, the CUDA
+                         kernel csrc/sample_raster.cu on a CUDA tensor,
+                         sample_raster_plain on CPU; sample_raster over a
+                         (C, R, WP) channel stack
 """
 
 from __future__ import annotations
@@ -160,3 +162,83 @@ def sample_nearest(patches: torch.Tensor, lx: torch.Tensor,
     ri = torch.round(torch.clamp(ly, 0, ph - 1)).to(torch.int64)
     vals = patches.reshape(K, ph * pw).gather(1, ri * pw + ci)
     return vals.to(torch.bfloat16).to(torch.float32)
+
+
+def _sample_windows(src2: torch.Tensor, stride: int, row0: torch.Tensor,
+                    col0: torch.Tensor, c: int, ph: int, pw: int):
+    """Channel c's (ph, pw) window origins: row0 rounded down to 8 rows plus
+    c * stride, col0 rounded down to 128 columns (the TPU kernel's tile
+    grid), each clamped so the window lies inside the raster (coloc_tpu's
+    dynamic_slice form). On the AKAZE path both steps are no-ops."""
+    R, WP = src2.shape
+    r0 = torch.clamp((row0 & -8) + c * stride, 0, R - ph)
+    c0 = torch.clamp(col0 & -128, 0, WP - pw)
+    return r0.to(torch.int64), c0.to(torch.int64)
+
+
+def sample_raster_plain(src2: torch.Tensor, stride: int, row0: torch.Tensor,
+                        col0: torch.Tensor, lx: torch.Tensor, ly: torch.Tensor,
+                        C: int, ph: int, pw: int) -> torch.Tensor:
+    """Plain twin of csrc/sample_raster.cu: per channel, the keypoint's
+    window (_sample_windows), coordinates clipped to it and rounded half to
+    even, one element read -> (C, K, NS) float32."""
+    ci = torch.round(torch.clamp(lx, 0, pw - 1)).to(torch.int64)
+    ri = torch.round(torch.clamp(ly, 0, ph - 1)).to(torch.int64)
+    flat = src2.reshape(-1)
+    WP = src2.shape[1]
+    outs = []
+    for c in range(C):
+        r0, c0 = _sample_windows(src2, stride, row0, col0, c, ph, pw)
+        at = (r0[:, None] + ri) * WP + c0[:, None] + ci
+        outs.append(flat[at].to(torch.float32))
+    return torch.stack(outs)
+
+
+def _sample_raster_cuda(src2, stride, row0, col0, lx, ly, C, ph, pw):
+    dev = src2.device
+    R, WP = src2.shape
+    K, NS = lx.shape
+    dispatch.check_operand(src2, "src2", torch.bfloat16, (R, WP), dev)
+    dispatch.check_operand(row0, "row0", torch.int32, (K,), dev)
+    dispatch.check_operand(col0, "col0", torch.int32, (K,), dev)
+    dispatch.check_operand(lx, "lx", torch.float32, (K, NS), dev)
+    dispatch.check_operand(ly, "ly", torch.float32, (K, NS), dev)
+    if R < ph or WP < pw:
+        raise ValueError(f"src2 {tuple(src2.shape)} is smaller than a "
+                         f"({ph}, {pw}) window")
+    out = torch.empty((C, K, NS), dtype=torch.float32, device=dev)
+    _build.launch("coloc_sample_raster", src2.data_ptr(), row0.data_ptr(),
+                  col0.data_ptr(), lx.data_ptr(), ly.data_ptr(), out.data_ptr(),
+                  R, WP, stride, K, NS, C, ph, pw, dev.index,
+                  dispatch.stream_handle(dev))
+    dispatch.count_launch("sample_raster")
+    return out
+
+
+def sample_raster_flat(src2: torch.Tensor, stride: int, row0: torch.Tensor,
+                       col0: torch.Tensor, lx: torch.Tensor, ly: torch.Tensor,
+                       C: int = 1, ph: int = PH, pw: int = PW) -> torch.Tensor:
+    """Nearest samples of C channels at shared window-local coordinates
+    -> (C, K, NS) float32.
+
+    `src2` (n * stride, WP) holds row-stacked rasters; channel c of keypoint
+    k reads the (ph, pw) window at (row0[k] + c * stride, col0[k]); lx, ly
+    (K, NS) are window-local. `src2` is bfloat16: coloc_tpu casts its raster
+    stack to bf16 before sampling, and its one-hot product returns each
+    bf16 value exactly (one non-zero term of weight 1.0, float32
+    accumulation), so reading the bf16 element and widening it gives
+    coloc_tpu's value bit for bit."""
+    if dispatch.use_kernel(src2):
+        return _sample_raster_cuda(src2.contiguous(), stride, row0.contiguous(),
+                                   col0.contiguous(), lx.contiguous(),
+                                   ly.contiguous(), C, ph, pw)
+    return sample_raster_plain(src2, stride, row0, col0, lx, ly, C, ph, pw)
+
+
+def sample_raster(srcs: torch.Tensor, row0: torch.Tensor, col0: torch.Tensor,
+                  lx: torch.Tensor, ly: torch.Tensor) -> torch.Tensor:
+    """sample_raster_flat over a (C, R, WP) bf16 channel stack with
+    full-width (PH, PW) windows."""
+    C, R, WP = srcs.shape
+    return sample_raster_flat(srcs.reshape(-1, WP), R, row0, col0, lx, ly,
+                              C=C, pw=PW)

@@ -332,8 +332,10 @@ def test_frontend_from_raw_image(images, batch):
 
 
 def test_akaze_backend_raises():
-    opts = tcfg.DetectorOptions(**OPTS, backend="akaze")
-    with pytest.raises(NotImplementedError, match="A9"):
+    """backend="akaze" goes to the AKAZE frontend, never TRIP: its knob
+    validation raises where TRIP would have run."""
+    opts = tcfg.DetectorOptions(**OPTS, backend="akaze", akaze_sublevels=6)
+    with pytest.raises(ValueError, match="akaze_sublevels"):
         tfront.detect_and_describe(torch.zeros(H, W), opts)
 
 

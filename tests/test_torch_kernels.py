@@ -15,7 +15,7 @@ from coloc_tpu_torch import convert
 from coloc_tpu_torch.geometry import camera as cam_ops
 from coloc_tpu_torch.geometry import fivept, p3p
 from coloc_tpu_torch.io import synthetic
-from coloc_tpu_torch.ops import dispatch, fast, hamming, patches, ransac_rank
+from coloc_tpu_torch.ops import diffusion, dispatch, fast, hamming, patches, ransac_rank
 
 pytestmark = pytest.mark.cuda
 
@@ -234,3 +234,80 @@ def test_epi_rank_kernel_equals_plain(dev, Hm, M):
     d = (got - want).abs()
     assert float((d == 0).float().mean()) >= 0.999
     assert float(d.max()) <= 2.0
+
+
+@pytest.mark.parametrize("h,w", [(37, 61), (120, 188)])
+def test_fed_octave_kernel_equals_plain(dev, h, w):
+    """B10, B = 2 with distinct k^2 at odd sizes, the default preset's
+    octave-0 schedule: the kernel repeats the twin's arithmetic in its
+    order (-fmad=false), so all four planes are bit-equal."""
+    rng = np.random.default_rng(h * w)
+    L = torch.from_numpy(rng.uniform(0, 1, (2, h, w)).astype(np.float32)).to(dev)
+    k2 = torch.tensor([0.01, 0.04], device=dev)
+    _, cycles, sigma4s = diffusion.octave_schedule(4, 4, 1.6, 0.25)[0]
+    before = dispatch.launch_counts()["fed_octave"]
+    got = diffusion.fed_octave(L, k2, cycles, sigma4s)
+    want = diffusion.fed_octave_plain(L, k2, cycles, sigma4s)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["fed_octave"] == before + 1
+    for g, w_, name in zip(got, want, ("L", "Lx", "Ly", "response")):
+        assert g.shape == (2, 4, h, w)
+        assert torch.equal(g, w_), name
+
+
+@pytest.mark.parametrize("C,ph,NS", [(2, 48, 49), (3, 64, 464)])
+def test_sample_raster_kernel_equals_plain(dev, C, ph, NS):
+    """B11 at K = 77 (no multiple of any tile), with .5 coordinate ties,
+    coordinates outside the window and unaligned or out-of-range origins:
+    exact (a gather of bf16 values)."""
+    rng = np.random.default_rng(C)
+    K, stride, WP, pw = 77, 300, 768, 128
+    src = torch.from_numpy(rng.uniform(-3, 3, (6 * stride, WP)).astype(np.float32)
+                           ).to(torch.bfloat16)
+    row0 = rng.integers(0, 6 * stride - (C - 1) * stride - ph + 1, K)
+    col0 = rng.integers(0, WP - pw + 1, K)
+    row0[:4] = [6 * stride, 6 * stride - ph - 3, 5, 0]
+    col0[:4] = [WP + 9, WP - pw + 7, 130, 0]
+    lx = rng.uniform(-6, pw + 5, (K, NS)).astype(np.float32)
+    ly = rng.uniform(-6, ph + 5, (K, NS)).astype(np.float32)
+    lx[:, :6] = [0.5, 1.5, 2.5, 126.5, 127.5, -0.5]
+    ly[:, :6] = [0.5, 1.5, ph - 1.5, ph - 0.5, 3.5, -0.5]
+    args = [torch.from_numpy(a.astype(np.int32)) for a in (row0, col0)] + [
+        torch.from_numpy(lx), torch.from_numpy(ly)]
+    before = dispatch.launch_counts()["sample_raster"]
+    got = patches.sample_raster_flat(src.to(dev), stride, *(a.to(dev) for a in args),
+                                     C=C, ph=ph, pw=pw)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["sample_raster"] == before + 1
+    want = patches.sample_raster_plain(src, stride, *args, C, ph, pw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("Q,T", [(5, 2048), (100, 5000), (1024, 262144)])
+def test_k2nn_group_kernel_equals_plain(dev, Q, T):
+    """B12 with a partial last group, invalid rows and a duplicated best
+    row: exact (integer keys), then the two-stage match on the card
+    against the CPU plain path."""
+    rng = np.random.default_rng(Q)
+    t = _desc(rng, T)
+    q = t[torch.from_numpy(rng.integers(0, T, Q))].clone()
+    q[Q // 2:] = _desc(rng, Q - Q // 2)
+    t[T - 1] = t[3]                                  # a duplicate in another group
+    q[0] = t[3]
+    t_valid = torch.from_numpy(rng.random(T) > 0.05)
+    t_valid[[3, T - 1]] = True
+    q_valid = torch.ones(Q, dtype=torch.bool)
+    bank = hamming.pack_bank_twostage(t.to(dev), t_valid.to(dev))
+    q_pf = hamming.prefilter_words(q.to(dev))
+    before = dispatch.launch_counts()["k2nn_group"]
+    got = hamming.group_top2(q_pf, bank)
+    want = hamming.group_top2_plain(q_pf, bank)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["k2nn_group"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    out = hamming.hamming_2nn_twostage(q.to(dev), q_valid.to(dev), bank)
+    ref = hamming.hamming_2nn_twostage(q, q_valid, hamming.pack_bank_twostage(t, t_valid))
+    for g, w in zip(out, ref):
+        assert torch.equal(g.cpu(), w)
+    assert int(out[0][0]) == 3 and int(out[1][0]) == 0 and int(out[2][0]) == 0
