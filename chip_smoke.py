@@ -15,7 +15,12 @@ matcher against a 262144-row bank. Phases:
   1. device   — a CUDA device is required (there is no CPU path)
   2. build    — nvcc builds the kernels from coloc_tpu_torch/csrc
   3. kernels  — each kernel against its plain PyTorch twin on the card, at
-                the shapes of the main path, with kernel and plain times
+                the shapes of the main path, with kernel and plain times;
+                B1 also at the AKAZE frame's and the large map's shapes
+                and B4 on the D=1 raster, with wrapper and profiler device
+                times, and with --parent DIR (a directory holding the
+                parent commit's k2nn.cu and fast_nms.cu) the parent's
+                kernels timed in turns with these on the same inputs
   4. slice    — FRAMES frames through match_with_map + localize_image on
                 random features, checked against the identity ground
                 truth, plus frame 0 through the plain CPU path with the
@@ -138,6 +143,146 @@ def cuda_ms(fn, warmup: int = WARMUP, iters: int = ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str, calls: int = 20):
+    """Mean device milliseconds of the kernels whose name holds `kernel`
+    over `calls` calls of fn(), from torch.profiler's key_averages(); None
+    when the profiler saw none of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = count = 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total_us += ev.device_time_total
+            count += ev.count
+    return total_us / count / 1e3 if count and total_us > 0 else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def timed_pair(tag, new, old, kernel, card, bnd=None):
+    """Wrapper ms (cuda_ms) and device ms (profiler) of this tree's kernel
+    and, when the parent's is given, of the parent's on the same inputs, in
+    turns (old, new, new, old) on one card. -> dict of the new kernel's
+    ms and device_ms, and the parent's parent_ms and parent_device_ms."""
+    order = (("old", old), ("new", new), ("new", new), ("old", old)) if old else \
+        (("new", new),)
+    ms = {"old": [], "new": []}
+    dev = {"old": [], "new": []}
+    for which, fn in order:
+        ms[which].append(cuda_ms(fn))
+        dev[which].append(device_ms(fn, kernel))
+
+    def mean(v):
+        return None if not v or None in v else sum(v) / len(v)
+
+    out = dict(ms=mean(ms["new"]), device_ms=mean(dev["new"]),
+               parent_ms=mean(ms["old"]), parent_device_ms=mean(dev["old"]))
+    b = "" if bnd is None else f"; bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']})"
+    p = "not given (--parent)" if old is None else (
+        f"wrapper {fmt_ms(out['parent_ms'])}, device {fmt_ms(out['parent_device_ms'])} "
+        f"(old, new, new, old in one call)")
+    print(f"[3 {tag}] wrapper {fmt_ms(out['ms'])}, device {fmt_ms(out['device_ms'])}; "
+          f"parent kernel {p}{b}  ({card})")
+    return out
+
+
+def build_parent(src_dir: Path):
+    """The parent commit's B1 and B4 launchers (k2nn.cu, fast_nms.cu in
+    src_dir, common.cuh from there or from this checkout), built by nvcc
+    into a temporary directory, loaded with ctypes under their C names."""
+    import ctypes
+    import tempfile
+
+    from coloc_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    work = Path(tempfile.mkdtemp(prefix="coloc-parent-"))
+    objs, procs = [], []
+    for name in ("k2nn", "fast_nms"):
+        obj = work / f"{name}.o"
+        cmd = [nvcc, *_build.NVCC_FLAGS, f"-I{src_dir}", f"-I{_build.CSRC}", "-c", "-o",
+               str(obj), str(src_dir / f"{name}.cu")]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        objs.append(str(obj))
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        check(proc.returncode == 0, f"parent build failed: {' '.join(cmd)}\n{out}")
+    lib_path = work / "libparent.so"
+    proc = subprocess.run([nvcc, *_build._ARCH, "-shared", "-o", str(lib_path), *objs],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"parent link failed: {proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("coloc_k2nn", "coloc_fast_nms"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def sass_mma(lib_path: Path, nvcc: str) -> dict:
+    """{kernel function: sorted MMA opcodes} from `cuobjdump -sass` of the
+    built library."""
+    import re
+
+    proc = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr.strip()}")
+    found, fn = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            found.setdefault(fn, set())
+            continue
+        # an instruction line: /*addr*/ [@predicate] OPCODE[.modifiers] operands
+        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn is not None and op and op.group(1).split(".")[0].endswith("MMA"):
+            found[fn].add(op.group(1))
+    return {f: sorted(ops) for f, ops in found.items()}
+
+
+def k2nn_case(np, torch, dev, Q, T, seed):
+    """A B1 input of Q queries against T rows (tests/test_hamming.py's
+    matching shape: most queries a bank row with ~20 bits flipped, the rest
+    random): query 0's best row duplicated in two later bank splits of the
+    kernel (eighths of the stages) and in its last stage, a band of 40
+    invalid rows that holds query 5's own row, query 7 invalid.
+    -> (q, q_valid, bank, best row of query 0, query 5's own row)."""
+    from coloc_tpu_torch.ops import hamming
+
+    rng = np.random.default_rng(seed)
+    td = rng.integers(0, 2 ** 32, (T, 16), dtype=np.uint64).astype(np.uint32)
+    rows = rng.integers(0, T, Q)
+    qd = td[rows].copy()
+    flips = rng.integers(0, 512, (Q, 20))
+    for j in range(flips.shape[1]):
+        qd[np.arange(Q), flips[:, j] // 32] ^= np.uint32(1) << (flips[:, j] % 32).astype(np.uint32)
+    qd[Q - Q // 5:] = rng.integers(0, 2 ** 32, (Q // 5, 16), dtype=np.uint64).astype(np.uint32)
+    r0 = T // 16
+    for r in (3 * T // 8 + 5, 6 * T // 8 + 9, T - 1):
+        td[r] = td[r0]
+    qd[0] = td[r0]
+    tv = np.ones(T, bool)
+    band = T // 2 + 100
+    tv[band:band + 40] = False
+    qd[5] = td[band + 10]
+    qv = np.ones(Q, bool)
+    qv[7] = False
+    bank = hamming.pack_bank(torch.from_numpy(td.view(np.int32)).to(dev),
+                             torch.from_numpy(tv).to(dev))
+    return (torch.from_numpy(qd.view(np.int32)).to(dev), torch.from_numpy(qv).to(dev), bank,
+            r0, band + 10)
+
+
 def bound(nbytes: float, ops: float, peak: float) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move (each input read once, each output written once)
@@ -195,6 +340,11 @@ def profile_frames(torch, tag, run, n):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"[{tag} profile] device us a frame, largest kernels: " + "; ".join(
         f"{us / n:.1f} {name[:60]}" for name, us in top))
+    # the port's own kernels are the ones in an anonymous namespace
+    ours = {name.split("::", 1)[1].split("(", 1)[0]: us for name, us in by_name.items()
+            if name.startswith("(anonymous namespace)::")}
+    print(f"[{tag} profile] the port's kernels, device us a frame: " + "; ".join(
+        f"{name} {us / n:.1f}" for name, us in sorted(ours.items(), key=lambda kv: -kv[1])))
 
 
 def percentiles(np, ms):
@@ -251,9 +401,16 @@ def workload(np, rng):
     return fa, ma._replace(X=X), K, n_out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a directory with the parent commit's k2nn.cu and fast_nms.cu: "
+                         "phase 3 times them beside this tree's B1 and B4")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "kernels need a CUDA device", file=sys.stderr)
@@ -300,6 +457,18 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("    " + line.strip())
+    sass = sass_mma(_build.library_path(_build._nvcc()), _build._nvcc())
+    for fn, ops in sass.items():
+        if ops:
+            print(f"    SASS {fn}: {', '.join(ops)}")
+    check(any(ops for fn, ops in sass.items() if "k2nn_mma_kernel" in fn),
+          "B1's kernel shows no MMA instruction in its SASS")
+    parent = None
+    if args.parent is not None:
+        t0 = time.perf_counter()
+        parent = build_parent(args.parent.resolve())
+        print(f"[2 build] the parent's B1 and B4 from {args.parent}: "
+              f"{time.perf_counter() - t0:.2f} s")
 
     rng = np.random.default_rng(SEED)
     fa, ma, K, n_out = workload(np, rng)
@@ -320,19 +489,57 @@ def main() -> int:
     bank = hamming.pack_bank(t_desc, t_valid)
     q_valid = feats.valid.clone()
     q_valid[7] = False
-    out_k = hamming._hamming_2nn_cuda(feats.desc, q_valid, bank)
-    out_p = hamming.hamming_2nn_plain(feats.desc, q_valid, bank)
-    torch.cuda.synchronize()
-    err = max(int((a - b).abs().max()) for a, b in zip(out_k, out_p))
-    check(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
-          f"k2nn differs from its plain twin (max |diff| {err})")
-    check(int(out_k[0][0]) == 0 and int(out_k[1][0]) == 0
-          and int(out_k[2][0]) == 0, "k2nn duplicate semantics")
-    check(int(out_k[1][7]) == 2048, "k2nn invalid-query semantics")
+
+    def check_k2nn(tag, q, qv, bank, best_row, own_row):
+        """B1 against its twin, bit for bit, and the planted semantics."""
+        out_k = hamming._hamming_2nn_cuda(q, qv, bank)
+        out_p = hamming.hamming_2nn_plain(q, qv, bank)
+        torch.cuda.synchronize()
+        err = max(int((a - b).abs().max()) for a, b in zip(out_k, out_p))
+        check(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
+              f"k2nn {tag} differs from its plain twin (max |diff| {err})")
+        check(int(out_k[0][0]) == best_row and int(out_k[1][0]) == 0
+              and int(out_k[2][0]) == 0, f"k2nn {tag}: duplicate semantics")
+        check(int(out_k[1][7]) == 2048 and int(out_k[2][7]) == 2048,
+              f"k2nn {tag}: invalid-query semantics")
+        check(int(out_k[0][5]) != own_row, f"k2nn {tag}: an invalid row was best")
+        print(f"[3 k2nn] {tag}: bit-equal to the twin (duplicates of query 0's best in "
+              f"other splits, an invalid band, an invalid query)")
+        return float(err)
+
+    def k2nn_pair(q, qv, bank):
+        """This tree's B1 and, with --parent, the parent's on the same inputs."""
+        new = lambda: hamming._hamming_2nn_cuda(q, qv, bank)  # noqa: E731
+        if parent is None:
+            return new, None
+        outs = [torch.empty(q.shape[0], dtype=torch.int32, device=dev) for _ in range(3)]
+        launch = (q.data_ptr(), qv.data_ptr(), bank.desc.data_ptr(), bank.pen.data_ptr(),
+                  *(o.data_ptr() for o in outs), q.shape[0], bank.desc.shape[0], dev.index,
+                  dispatch.stream_handle(dev))
+
+        def old():
+            check(parent.coloc_k2nn(*launch) == 0, "the parent's k2nn did not launch")
+        return new, old
+
+    err = check_k2nn("Q=1024 x T=4096", feats.desc, q_valid, bank, 0, 5)
     results["k2nn"] = dict(
-        max_abs_err=float(err),
-        ms=cuda_ms(lambda: hamming._hamming_2nn_cuda(feats.desc, q_valid, bank)),
-        plain_ms=cuda_ms(lambda: hamming.hamming_2nn_plain(feats.desc, q_valid, bank)))
+        max_abs_err=err,
+        plain_ms=cuda_ms(lambda: hamming.hamming_2nn_plain(feats.desc, q_valid, bank)),
+        **timed_pair("k2nn Q=1024 x T=4096", *k2nn_pair(feats.desc, q_valid, bank),
+                     "k2nn", card))
+    # B1 at the AKAZE frame's shape (4e) and the large map's (4g), timed,
+    # and at Q and T that are no multiple of the query tile or the stage
+    # (the last stage holds 8 rows, one of them a duplicate)
+    for i, (Qc, Tc, timed) in enumerate(((5000, 8192, True), (1024, 262144, True),
+                                         (1000, 8200, False))):
+        q_c, qv_c, bank_c, r0, own = k2nn_case(np, torch, dev, Qc, Tc, SEED + 100 + i)
+        tag = f"Q={Qc} x T={Tc}"
+        err = check_k2nn(tag, q_c, qv_c, bank_c, r0, own)
+        results["k2nn"]["max_abs_err"] = max(results["k2nn"]["max_abs_err"], err)
+        if timed:
+            timed_pair(f"k2nn {tag}", *k2nn_pair(q_c, qv_c, bank_c), "k2nn", card,
+                       bound(Qc * 65 + Tc * 68 + 12 * Qc, 2.0 * Qc * Tc * 512, INT8_OPS))
+        del q_c, qv_c, bank_c
 
     # B2: 256 minimal samples of the frame's 2D-3D correspondences
     corr = torch.ones(KP, dtype=torch.bool, device=dev)
@@ -351,6 +558,7 @@ def main() -> int:
     results["p3p"] = dict(
         max_abs_err=float(diff.max()) if both.any() else 0.0,
         ms=cuda_ms(lambda: p3p._p3p_flats_cuda(Xs, bs)),
+        device_ms=device_ms(lambda: p3p._p3p_flats_cuda(Xs, bs), "p3p_kernel"),
         plain_ms=cuda_ms(lambda: p3p.p3p_flats_plain(Xs, bs)))
     exact = float((fk == fp).all(dim=2)[both].float().mean()) if both.any() else 1.0
     print(f"[3 p3p] valid masks agree on {valid_agree:.4f} of samples, "
@@ -378,6 +586,8 @@ def main() -> int:
     results["ransac_rank"] = dict(
         max_abs_err=rank_err,
         ms=cuda_ms(lambda: ransac_rank._ladder_rank_cuda(*ops, thr_sq, "pos", 2, 5)),
+        device_ms=device_ms(lambda: ransac_rank._ladder_rank_cuda(*ops, thr_sq, "pos", 2, 5),
+                            "rank_kernel"),
         plain_ms=cuda_ms(lambda: ransac_rank.ladder_rank_plain(*ops, thr_sq, "pos")))
 
     # B4: the D=2 stacked raw raster of the bench scene (two views), with a
@@ -393,21 +603,65 @@ def main() -> int:
     for y0 in range(44, 92, 12):
         for x0 in range(44, 392, 12):
             raster[y0:y0 + 5, x0:x0 + 5] = 255.0
-    rk, nk = fast._fast_nms_cuda(raster, FAST_THRESHOLD)
-    rp, nmp = fast.fast_nms_plain(raster, FAST_THRESHOLD)
-    torch.cuda.synchronize()
-    err = max(float((rk - rp).abs().max()), float((nk - nmp).abs().max()))
-    check(torch.equal(rk, rp) and torch.equal(nk, nmp),
-          f"fast_nms differs from its plain twin (max |diff| {err})")
+    # squares of FAST_THRESHOLD on black: their corners' best arcs score
+    # exactly the threshold, which the strict test zeroes
+    raster[120:180, 40:400] = 0.0
+    for y0 in range(124, 172, 12):
+        for x0 in range(44, 392, 12):
+            raster[y0:y0 + 5, x0:x0 + 5] = float(FAST_THRESHOLD)
+    at_t = fast.fast_score_map(raster[120:180, 40:400], FAST_THRESHOLD - 0.5)
+    check(bool((at_t == FAST_THRESHOLD).any()), "fast_nms: no pixel scores exactly the threshold")
+    # a NaN on the ring of a true corner, (44, 44), off its compass points
+    check(float(fast.fast_score_map(raster[36:60, 36:60], FAST_THRESHOLD)[8, 8]) == 255.0,
+          "fast_nms: (44, 44) is no corner")
+    raster[46, 46] = float("nan")
+
+    def check_fast(tag, img, threshold):
+        rk, nk = fast._fast_nms_cuda(img, threshold)
+        rp, nmp = fast.fast_nms_plain(img, threshold)
+        torch.cuda.synchronize()
+        err = max(float((rk - rp).abs().max()), float((nk - nmp).abs().max()))
+        check(torch.equal(rk, rp) and torch.equal(nk, nmp),
+              f"fast_nms {tag} differs from its plain twin (max |diff| {err})")
+        print(f"[3 fast_nms] {tag} {tuple(img.shape)}, threshold {threshold}: raw and nms "
+              f"bit-equal; {int((rk > 0).sum())} corners, {int((nk > 0).sum())} kept")
+        return rk, err
+
+    def fast_pair(img):
+        """This tree's B4 and, with --parent, the parent's on the same raster."""
+        new = lambda: fast._fast_nms_cuda(img, FAST_THRESHOLD)  # noqa: E731
+        if parent is None:
+            return new, None
+        outs = [torch.empty_like(img) for _ in range(2)]
+        launch = (img.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(), *img.shape,
+                  float(FAST_THRESHOLD), dev.index, dispatch.stream_handle(dev))
+
+        def old():
+            check(parent.coloc_fast_nms(*launch) == 0, "the parent's fast_nms did not launch")
+        return new, old
+
+    rk, err = check_fast("D=2 raster, planted", raster, FAST_THRESHOLD)
     ties = int(((rk[:, 1:] == rk[:, :-1]) & (rk[:, 1:] == 255.0)).sum())
     check(ties > 0, "fast_nms: the planted plateau has no equal neighbours")
-    print(f"[3 fast_nms] raster {tuple(raster.shape)}: raw and nms bit-equal; "
-          f"{int((rk > 0).sum())} corners, {int((nk > 0).sum())} kept, "
-          f"{ties} equal neighbour pairs on the plateau")
+    check(float(rk[44, 44]) == 0.0, "fast_nms: a NaN on the ring did not zero the corner")
+    check(not bool(rk[123:177, 43:397].any()), "fast_nms: a score at the threshold was kept")
+    print(f"[3 fast_nms] {ties} equal neighbour pairs on the 255 plateau; the threshold "
+          f"plateau and the NaN's corner zeroed")
     results["fast_nms"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: fast._fast_nms_cuda(raster, FAST_THRESHOLD)),
-        plain_ms=cuda_ms(lambda: fast.fast_nms_plain(raster, FAST_THRESHOLD)))
+        plain_ms=cuda_ms(lambda: fast.fast_nms_plain(raster, FAST_THRESHOLD)),
+        **timed_pair("fast_nms D=2 4464x768", *fast_pair(raster), "fast_nms", card))
+    # the D=1 raster of the full frame (4b), timed; cut to an odd width
+    # (scalar loads, a partial last tile column); a negative threshold
+    raster1 = patches.stack_levels_batch([lv[:1] for lv in levels]).stacked.contiguous()
+    for tag, img, thr in (("D=1 raster", raster1, FAST_THRESHOLD),
+                          ("D=1 raster, odd width", raster1[:, :747].contiguous(),
+                           FAST_THRESHOLD),
+                          ("D=1 raster", raster1[:300], -1.0)):
+        _, err = check_fast(tag, img, thr)
+        results["fast_nms"]["max_abs_err"] = max(results["fast_nms"]["max_abs_err"], err)
+    timed_pair(f"fast_nms D=1 {tuple(raster1.shape)}", *fast_pair(raster1), "fast_nms", card,
+               bound(raster1.numel() * 12, raster1.numel() * 180.0, FP32_FLOPS))
 
     # B5: the windows of the two views' detected keypoints, plus origins at
     # the raster's last rows and columns (and unaligned ones to round)
@@ -435,8 +689,10 @@ def main() -> int:
     results["extract"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: patches._extract_patches_cuda(sps.stacked, row0, col0)),
+        device_ms=device_ms(lambda: patches._extract_patches_cuda(sps.stacked, row0, col0),
+                            "extract_kernel"),
         plain_ms=cuda_ms(lambda: patches.extract_patches_plain(sps.stacked, row0, col0)))
-    del rk, nk, rp, nmp, pk, pp
+    del rk, pk, pp
 
     # B1-B5 bounds at this run's shapes. Operation counts: B1 as the +-1
     # int8 product the TPU kernel runs (2 Q T 512); B2 ~1500 flops a sample;
@@ -679,6 +935,8 @@ def main() -> int:
     del gk, gp
     for name, r in results.items():
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        if "device_ms" in r:
+            lib += f", device {fmt_ms(r['device_ms'])} (profiler)"
         print(f"[3 {name}] kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max |err| "
               f"{r['max_abs_err']:.3e}  ({card})")

@@ -63,6 +63,50 @@ def test_k2nn_kernel_all_invalid_bank(dev):
     assert (idx == -1).all() and (best == 2048).all() and (second == 2048).all()
 
 
+def _flip(row, bits):
+    out = row.copy()
+    for b in bits:
+        out[b // 32] ^= np.uint32(1) << np.uint32(b % 32)
+    return out
+
+
+@pytest.mark.parametrize("Q,T", [(1000, 8200), (5000, 8192), (64, 262144)])
+def test_k2nn_kernel_splits_ties_invalid(dev, Q, T):
+    """B1 across the kernel's bank splits (eighths of its 256-row stages):
+    duplicates of query 0's best in three later splits and in the last
+    stage (partial at T=8200); two rows at equal distance from query 1 in
+    different splits; an invalid band that covers a whole split and holds
+    query 5's own row; Q no multiple of the 64-query tile but one."""
+    rng = np.random.default_rng(T)
+    t = rng.integers(0, 2 ** 32, (T, 16), dtype=np.uint64).astype(np.uint32)
+    q = rng.integers(0, 2 ** 32, (Q, 16), dtype=np.uint64).astype(np.uint32)
+    r0 = T // 16
+    t[[3 * T // 8 + 5, 6 * T // 8 + 9, T - 1]] = t[r0]
+    q[0] = t[r0]
+    tie_a, tie_b = T // 8 + 3, 5 * T // 8 + 1
+    t[tie_a] = _flip(q[1], range(0, 10))
+    t[tie_b] = _flip(q[1], range(100, 110))
+    t_valid = np.ones(T, bool)
+    t_valid[T // 4 - 300:3 * T // 8 + 2] = False
+    q[5] = t[T // 4]
+    q_valid = np.ones(Q, bool)
+    q_valid[7] = False
+    qt, tt = (torch.from_numpy(a.view(np.int32)) for a in (q, t))
+    qv, tv = torch.from_numpy(q_valid), torch.from_numpy(t_valid)
+    before = dispatch.launch_counts()["k2nn"]
+    got = hamming.hamming_2nn_bank(qt.to(dev), qv.to(dev), hamming.pack_bank(tt.to(dev), tv.to(dev)))
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["k2nn"] == before + 1
+    want = hamming.hamming_2nn_plain(qt, qv, hamming.pack_bank(tt, tv))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    idx, best, second = (g.cpu() for g in got)
+    assert (int(idx[0]), int(best[0]), int(second[0])) == (r0, 0, 0)
+    assert (int(idx[1]), int(best[1]), int(second[1])) == (tie_a, 10, 10)
+    assert int(idx[5]) != T // 4
+    assert int(best[7]) == int(second[7]) == 2048
+
+
 def _samples(rng, B):
     fa = synthetic.random_features(480, 752, 1024, rng)
     K = np.array([[451.2, 0, 376], [0, 451.2, 240], [0, 0, 1]], np.float32)
@@ -105,7 +149,33 @@ def test_rank_kernel_equals_plain(dev, zmode, Hm, M):
     assert float(d.max()) <= 2.0
 
 
+def _squares(h, w, value):
+    """value-filled 5x5 squares on black every 12 px: their corners' best
+    arcs score exactly `value`."""
+    img = np.zeros((h, w), np.float32)
+    for y0 in range(8, h - 12, 12):
+        for x0 in range(8, w - 12, 12):
+            img[y0:y0 + 5, x0:x0 + 5] = value
+    return img
+
+
 def _fast_input(kind, h, w, rng):
+    if kind == "at_threshold":
+        # corners scoring exactly the threshold (zeroed: the test is
+        # strict) beside corners scoring 12.5
+        img = _squares(h, w, 12.0)
+        img[:, w // 2:] = _squares(h, w - w // 2, 12.5)
+        return torch.from_numpy(img)
+    if kind == "nan_ring":
+        img = _squares(h, w, 255.0)
+        img[10, 10] = np.nan       # ring k=6 of the corner (8, 8), off the compass
+        img[23, 44] = np.nan       # ring k=8 of the corner (20, 44), a compass point
+        img[32, 68] = np.nan       # a centre
+        return torch.from_numpy(img)
+    if kind in ("squares", "negative_threshold"):
+        img = rng.uniform(0, 255, (h, w)).astype(np.float32)
+        img[10:58, 10:58] = _squares(48, 48, 255.0)
+        return torch.from_numpy(img)
     if kind == "zeros":
         return torch.zeros(h, w)
     if kind == "ties":
@@ -121,14 +191,22 @@ def _fast_input(kind, h, w, rng):
 
 @pytest.mark.parametrize("kind,h,w", [("random", 32, 32), ("random", 97, 131),
                                       ("random", 4464, 768), ("zeros", 64, 64),
-                                      ("ties", 70, 45), ("random", 5, 7)])
+                                      ("ties", 70, 45), ("random", 5, 7),
+                                      ("at_threshold", 100, 200), ("nan_ring", 80, 140),
+                                      ("negative_threshold", 97, 131), ("squares", 150, 197),
+                                      ("squares", 150, 130), ("squares", 150, 68)])
 def test_fast_nms_kernel_equals_plain(dev, kind, h, w):
+    """Bit-equal to the twin, including where B4's early-out could go wrong:
+    a plateau at exactly the threshold, a negative threshold (both sides
+    pass), NaN on a corner's ring and at a centre, and widths that are no
+    multiple of its 62-px tile or of 4 (clamped scalar loads)."""
     img = _fast_input(kind, h, w, np.random.default_rng(h * w))
+    threshold = -3.0 if kind == "negative_threshold" else 12.0
     before = dispatch.launch_counts()["fast_nms"]
-    raw, nms = fast.fast_nms(img.to(dev), 12.0)
+    raw, nms = fast.fast_nms(img.to(dev), threshold)
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["fast_nms"] == before + 1
-    want_raw, want_nms = fast.fast_nms_plain(img, 12.0)
+    want_raw, want_nms = fast.fast_nms_plain(img, threshold)
     assert torch.equal(raw.cpu(), want_raw)
     assert torch.equal(nms.cpu(), want_nms)
 
