@@ -16,11 +16,14 @@ matcher against a 262144-row bank. Phases:
   2. build    — nvcc builds the kernels from coloc_tpu_torch/csrc
   3. kernels  — each kernel against its plain PyTorch twin on the card, at
                 the shapes of the main path, with kernel and plain times;
-                B1 also at the AKAZE frame's and the large map's shapes
-                and B4 on the D=1 raster, with wrapper and profiler device
-                times, and with --parent DIR (a directory holding the
-                parent commit's k2nn.cu and fast_nms.cu) the parent's
-                kernels timed in turns with these on the same inputs
+                B1 also at the AKAZE frame's and the large map's shapes,
+                B2 at B=1000, B3 at the AKAZE frame's M=5000, at small
+                shapes and on planted edge inputs, and B4 on the D=1
+                raster, with wrapper and profiler device times, and with
+                --parent DIR (a directory holding the parent commit's
+                k2nn.cu, fast_nms.cu, p3p.cu and ransac_rank.cu) the
+                parent's kernels timed in turns with these on the same
+                inputs, and B2 held bit for bit against the parent's
   4. slice    — FRAMES frames through match_with_map + localize_image on
                 random features, checked against the identity ground
                 truth, plus frame 0 through the plain CPU path with the
@@ -79,6 +82,10 @@ TWOSTAGE_Q, TWOSTAGE_T, TWOSTAGE_CALLS = 1024, 262144, 20
 # the least time of a kernel's work on an H100 SXM at 700 W: HBM bytes/s,
 # fp32 FLOP/s outside the tensor cores, int8 tensor-core OP/s
 HBM_BPS, FP32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
+# the kernels --parent builds from the parent commit's sources
+PARENT_KERNELS = ("k2nn", "fast_nms", "p3p", "ransac_rank")
+# B3 at the AKAZE frame's correspondence count (4e)
+AKAZE_RANK_M = 5000
 
 KERNEL_INFO = {
     "k2nn": ("coloc_tpu_torch/csrc/k2nn.cu", "coloc_tpu/ops/hamming.py:103"),
@@ -196,10 +203,11 @@ def timed_pair(tag, new, old, kernel, card, bnd=None):
     return out
 
 
-def build_parent(src_dir: Path):
-    """The parent commit's B1 and B4 launchers (k2nn.cu, fast_nms.cu in
-    src_dir, common.cuh from there or from this checkout), built by nvcc
-    into a temporary directory, loaded with ctypes under their C names."""
+def build_parent(src_dir: Path, names=PARENT_KERNELS):
+    """The parent commit's launchers of `names` (name.cu in src_dir,
+    common.cuh from there or from this checkout), built by nvcc into a
+    temporary directory and loaded with ctypes. Prints ptxas' registers and
+    spills of each. -> {name: the C function coloc_<name>}."""
     import ctypes
     import tempfile
 
@@ -208,7 +216,7 @@ def build_parent(src_dir: Path):
     nvcc = _build._nvcc()
     work = Path(tempfile.mkdtemp(prefix="coloc-parent-"))
     objs, procs = [], []
-    for name in ("k2nn", "fast_nms"):
+    for name in names:
         obj = work / f"{name}.o"
         cmd = [nvcc, *_build.NVCC_FLAGS, f"-I{src_dir}", f"-I{_build.CSRC}", "-c", "-o",
                str(obj), str(src_dir / f"{name}.cu")]
@@ -218,36 +226,67 @@ def build_parent(src_dir: Path):
     for cmd, proc in procs:
         out = proc.communicate()[0]
         check(proc.returncode == 0, f"parent build failed: {' '.join(cmd)}\n{out}")
+        print_ptxas(f"parent {Path(cmd[-1]).name}", out)
     lib_path = work / "libparent.so"
     proc = subprocess.run([nvcc, *_build._ARCH, "-shared", "-o", str(lib_path), *objs],
                           capture_output=True, text=True)
     check(proc.returncode == 0, f"parent link failed: {proc.stdout}{proc.stderr}")
+    for fn, (_, n_local) in sass_scan(lib_path, nvcc).items():
+        print(f"    parent SASS {fn}: {n_local} local-memory loads and stores")
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("coloc_k2nn", "coloc_fast_nms"):
-        getattr(lib, name).argtypes = _build._SIGNATURES[name]
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+    fns = {}
+    for name in names:
+        fn = getattr(lib, f"coloc_{name}")
+        fn.argtypes = _build._SIGNATURES[f"coloc_{name}"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
 
 
-def sass_mma(lib_path: Path, nvcc: str) -> dict:
-    """{kernel function: sorted MMA opcodes} from `cuobjdump -sass` of the
-    built library."""
+def print_ptxas(tag, log):
+    """ptxas' lines of each kernel: its entry, registers, stack and spills."""
+    for line in log.splitlines():
+        if any(k in line for k in ("Compiling entry", "registers", "spill")):
+            print(f"    {tag}: {line.strip()}")
+
+
+def sass_scan(lib_path: Path, nvcc: str) -> dict:
+    """{kernel function: (sorted MMA opcodes, count of local-memory loads
+    and stores)} from `cuobjdump -sass` of the built library."""
     import re
 
     proc = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass", str(lib_path)],
                           capture_output=True, text=True, timeout=300)
     check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr.strip()}")
-    found, fn = {}, None
+    found, local, fn = {}, {}, None
     for line in proc.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             found.setdefault(fn, set())
+            local.setdefault(fn, 0)
             continue
         # an instruction line: /*addr*/ [@predicate] OPCODE[.modifiers] operands
         op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)", line)
-        if fn is not None and op and op.group(1).split(".")[0].endswith("MMA"):
+        if fn is None or not op:
+            continue
+        base = op.group(1).split(".")[0]
+        if base.endswith("MMA"):
             found[fn].add(op.group(1))
-    return {f: sorted(ops) for f, ops in found.items()}
+        if base in ("LDL", "STL"):
+            local[fn] += 1
+    return {f: (sorted(ops), local[f]) for f, ops in found.items()}
+
+
+def rank_cases():
+    """tests/rank_cases.py of this checkout, the planted B3 inputs that the
+    tests use too, loaded by its path."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "rank_cases.py"
+    spec = importlib.util.spec_from_file_location("coloc_rank_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def k2nn_case(np, torch, dev, Q, T, seed):
@@ -340,9 +379,12 @@ def profile_frames(torch, tag, run, n):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"[{tag} profile] device us a frame, largest kernels: " + "; ".join(
         f"{us / n:.1f} {name[:60]}" for name, us in top))
-    # the port's own kernels are the ones in an anonymous namespace
+    # the port's own kernels are the ones in an anonymous namespace at the
+    # top level (a template's name starts with its return type, void);
+    # PyTorch has such templates too, instantiated on its own types
     ours = {name.split("::", 1)[1].split("(", 1)[0]: us for name, us in by_name.items()
-            if name.startswith("(anonymous namespace)::")}
+            if name.removeprefix("void ").startswith("(anonymous namespace)::")
+            and "at::" not in name}
     print(f"[{tag} profile] the port's kernels, device us a frame: " + "; ".join(
         f"{name} {us / n:.1f}" for name, us in sorted(ours.items(), key=lambda kv: -kv[1])))
 
@@ -408,8 +450,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a directory with the parent commit's k2nn.cu and fast_nms.cu: "
-                         "phase 3 times them beside this tree's B1 and B4")
+                    help="a directory with the parent commit's "
+                         f"{', '.join(n + '.cu' for n in PARENT_KERNELS)}: phase 3 "
+                         "times them beside this tree's kernels")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -454,20 +497,19 @@ def main(argv=None) -> int:
     _build.load()
     print(f"[2 build] {time.perf_counter() - t0:.2f} s (nvcc "
           f"{_build.build_seconds:.2f} s) -> {_build.library_path(_build._nvcc()).name}")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("    " + line.strip())
-    sass = sass_mma(_build.library_path(_build._nvcc()), _build._nvcc())
-    for fn, ops in sass.items():
-        if ops:
-            print(f"    SASS {fn}: {', '.join(ops)}")
-    check(any(ops for fn, ops in sass.items() if "k2nn_mma_kernel" in fn),
+    print_ptxas("build", _build.build_log)
+    sass = sass_scan(_build.library_path(_build._nvcc()), _build._nvcc())
+    for fn, (ops, n_local) in sass.items():
+        if ops or n_local or "p3p_kernel" in fn or "rank_kernel" in fn:
+            print(f"    SASS {fn}: MMA {', '.join(ops) or 'none'}; {n_local} local-memory "
+                  f"loads and stores")
+    check(any(ops for fn, (ops, _) in sass.items() if "k2nn_mma_kernel" in fn),
           "B1's kernel shows no MMA instruction in its SASS")
-    parent = None
+    parent = {}
     if args.parent is not None:
         t0 = time.perf_counter()
         parent = build_parent(args.parent.resolve())
-        print(f"[2 build] the parent's B1 and B4 from {args.parent}: "
+        print(f"[2 build] the parent's {', '.join(parent)} from {args.parent}: "
               f"{time.perf_counter() - t0:.2f} s")
 
     rng = np.random.default_rng(SEED)
@@ -510,7 +552,7 @@ def main(argv=None) -> int:
     def k2nn_pair(q, qv, bank):
         """This tree's B1 and, with --parent, the parent's on the same inputs."""
         new = lambda: hamming._hamming_2nn_cuda(q, qv, bank)  # noqa: E731
-        if parent is None:
+        if "k2nn" not in parent:
             return new, None
         outs = [torch.empty(q.shape[0], dtype=torch.int32, device=dev) for _ in range(3)]
         launch = (q.data_ptr(), qv.data_ptr(), bank.desc.data_ptr(), bank.pen.data_ptr(),
@@ -518,7 +560,7 @@ def main(argv=None) -> int:
                   dispatch.stream_handle(dev))
 
         def old():
-            check(parent.coloc_k2nn(*launch) == 0, "the parent's k2nn did not launch")
+            check(parent["k2nn"](*launch) == 0, "the parent's k2nn did not launch")
         return new, old
 
     err = check_k2nn("Q=1024 x T=4096", feats.desc, q_valid, bank, 0, 5)
@@ -541,54 +583,130 @@ def main(argv=None) -> int:
                        bound(Qc * 65 + Tc * 68 + 12 * Qc, 2.0 * Qc * Tc * 512, INT8_OPS))
         del q_c, qv_c, bank_c
 
-    # B2: 256 minimal samples of the frame's 2D-3D correspondences
+    # B2: 256 minimal samples of the frame's 2D-3D correspondences (and
+    # 1000 more). Against its twin statistically (float32 P3P, ROADMAP C8):
+    # valid masks agree on >= 99% of samples, flats within 1e-4 (1+|x|)-
+    # relative where both are valid; with --parent, against the parent's
+    # kernel bit for bit, flats (NaN included) and valid flags.
     corr = torch.ones(KP, dtype=torch.bool, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    idx = sample_indices(corr, cfg.ransac.num_hypotheses, 3, gen)
     Xc = mapdb.X[:KP]
     bc = cam_ops.bearing(cam, feats.xy)
-    Xs, bs = Xc[idx].contiguous(), bc[idx].contiguous()
-    fk, vk = p3p._p3p_flats_cuda(Xs, bs)
-    fp, vp = p3p.p3p_flats_plain(Xs, bs)
-    torch.cuda.synchronize()
-    both = vk & vp
-    valid_agree = float((vk == vp).all(dim=1).float().mean())
-    diff = (fk - fp).abs()[both]
-    rel = (diff / (1.0 + fp.abs()[both])).max() if both.any() else torch.tensor(0.0)
-    results["p3p"] = dict(
-        max_abs_err=float(diff.max()) if both.any() else 0.0,
-        ms=cuda_ms(lambda: p3p._p3p_flats_cuda(Xs, bs)),
-        device_ms=device_ms(lambda: p3p._p3p_flats_cuda(Xs, bs), "p3p_kernel"),
-        plain_ms=cuda_ms(lambda: p3p.p3p_flats_plain(Xs, bs)))
-    exact = float((fk == fp).all(dim=2)[both].float().mean()) if both.any() else 1.0
-    print(f"[3 p3p] valid masks agree on {valid_agree:.4f} of samples, "
-          f"{int(both.sum())} poses valid in both, {exact:.4f} of them bit-equal")
-    check(valid_agree >= 0.99, f"p3p valid masks agree on {valid_agree:.4f} < 0.99")
-    check(float(rel) <= 1e-4, f"p3p flats differ by {float(rel):.3e} (1+|x|)-relative")
 
-    # B3: Hm=1024 models (the 256 samples' flats) x M=1024 correspondences
-    focal = (cam.fx + cam.fy) * 0.5
-    ops = ransac_rank.p3p_operands(fk.reshape(-1, 12), Xc, bc, corr, focal)
-    ops = tuple(t.contiguous() for t in ops)
-    thr_sq = cfg.ransac.p3p_threshold ** 2
-    rank_err = 0.0
-    for zmode in ("pos", "nonzero"):
-        rk = ransac_rank._ladder_rank_cuda(*ops, thr_sq, zmode, 2, 5)
-        rp = ransac_rank.ladder_rank_plain(*ops, thr_sq, zmode)
+    def p3p_pair(X, b):
+        """This tree's B2 and, with --parent, the parent's on the same samples."""
+        new = lambda: p3p._p3p_flats_cuda(X, b)  # noqa: E731
+        if "p3p" not in parent:
+            return new, None
+        outs = (torch.empty((X.shape[0], 4, 12), device=dev),
+                torch.empty((X.shape[0], 4), dtype=torch.bool, device=dev))
+        launch = (X.data_ptr(), b.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+                  X.shape[0], dev.index, dispatch.stream_handle(dev))
+
+        def old():
+            check(parent["p3p"](*launch) == 0, "the parent's p3p did not launch")
+            return outs
+        return new, old
+
+    p3p_err = 0.0
+    for nb in (cfg.ransac.num_hypotheses, 1000):
+        idx = sample_indices(corr, nb, 3, torch.Generator(device=dev).manual_seed(SEED + nb))
+        Xs_c, bs_c = Xc[idx].contiguous(), bc[idx].contiguous()
+        fk, vk = p3p._p3p_flats_cuda(Xs_c, bs_c)
+        fp, vp = p3p.p3p_flats_plain(Xs_c, bs_c)
         torch.cuda.synchronize()
-        d = (rk - rp).abs()
-        equal = float((d == 0).float().mean())
-        check(equal >= 0.999, f"rank[{zmode}] equal on {equal:.4f} < 0.999")
-        check(float(d.max()) <= 2.0, f"rank[{zmode}] differs by {float(d.max())}")
-        rank_err = max(rank_err, float(d.max()))
-        print(f"[3 ransac_rank] zmode={zmode}: equal on {equal:.4f} of "
-              f"{rk.numel()} models, max |diff| {float(d.max())}")
+        both = vk & vp
+        valid_agree = float((vk == vp).all(dim=1).float().mean())
+        diff = (fk - fp).abs()[both]
+        rel = (diff / (1.0 + fp.abs()[both])).max() if both.any() else torch.tensor(0.0)
+        exact = float((fk == fp).all(dim=2)[both].float().mean()) if both.any() else 1.0
+        print(f"[3 p3p] B={nb}: valid masks agree on {valid_agree:.4f} of samples, "
+              f"{int(both.sum())} poses valid in both, {exact:.4f} of them bit-equal to the twin")
+        check(valid_agree >= 0.99, f"p3p valid masks agree on {valid_agree:.4f} < 0.99")
+        check(float(rel) <= 1e-4, f"p3p flats differ by {float(rel):.3e} (1+|x|)-relative")
+        p3p_err = max(p3p_err, float(diff.max()) if both.any() else 0.0)
+        _, old = p3p_pair(Xs_c, bs_c)
+        if old is not None:
+            fo, vo = old()
+            torch.cuda.synchronize()
+            check(torch.equal(fk.view(torch.int32), fo.view(torch.int32))
+                  and torch.equal(vk, vo), f"p3p B={nb} differs from the parent's kernel")
+            print(f"[3 p3p] B={nb}: flats and valid bit-equal to the parent's kernel")
+        if nb == cfg.ransac.num_hypotheses:
+            Xs, bs, flats_main = Xs_c, bs_c, fk
+    results["p3p"] = dict(
+        max_abs_err=p3p_err,
+        plain_ms=cuda_ms(lambda: p3p.p3p_flats_plain(Xs, bs)),
+        **timed_pair(f"p3p B={Xs.shape[0]}", *p3p_pair(Xs, bs), "p3p_kernel", card))
+
+    # B3: torch.equal with its twin in both zmodes: the main path's operands
+    # (Hm=1024 models, the 256 samples' flats, x M=1024), the AKAZE frame's
+    # M=5000 (the correspondences resampled with 1 cm noise on the points,
+    # 20% invalid), (1, 5), (9, 300), and the planted edge inputs of
+    # tests/rank_cases.py, alone and repeated 97 times against the models
+    # tiled to 1000
+    focal = (cam.fx + cam.fy) * 0.5
+    thr_sq = cfg.ransac.p3p_threshold ** 2
+    ops = tuple(t.contiguous() for t in ransac_rank.p3p_operands(
+        flats_main.reshape(-1, 12), Xc, bc, corr, focal))
+    rrng = np.random.default_rng(SEED + 3)
+    pick = torch.from_numpy(rrng.integers(0, KP, AKAZE_RANK_M)).to(dev)
+    X_m = Xc[pick] + torch.from_numpy(rrng.normal(0, 0.01, (AKAZE_RANK_M, 3))
+                                      .astype(np.float32)).to(dev)
+    v_m = torch.from_numpy(rrng.random(AKAZE_RANK_M) > 0.2).to(dev)
+    ops_m = tuple(t.contiguous() for t in ransac_rank.p3p_operands(
+        flats_main.reshape(-1, 12), X_m, bc[pick], v_m, focal))
+    cases = rank_cases()
+    planted = tuple(torch.from_numpy(a).to(dev) for a in cases.planted_rank_operands())
+    tiled = tuple(torch.from_numpy(a).to(dev) for a in cases.planted_rank_operands(97))
+    tiled = (tiled[0].repeat(167, 1)[:1000].contiguous(), *tiled[1:])
+    rank_inputs = (("Hm=1024 x M=1024", ops, thr_sq),
+                   (f"Hm=1024 x M={AKAZE_RANK_M}", ops_m, thr_sq),
+                   ("Hm=1 x M=5", (ops[0][:1].contiguous(), *(t[..., :5].contiguous()
+                                                              for t in ops[1:])), thr_sq),
+                   ("Hm=9 x M=300", (ops[0][:9].contiguous(), *(t[..., :300].contiguous()
+                                                                for t in ops[1:])), thr_sq),
+                   ("planted 6 x 13", planted, cases.THR_SQ),
+                   ("planted 1000 x 1261", tiled, cases.THR_SQ))
+    for tag, ops_c, thr_c in rank_inputs:
+        for zmode in ("pos", "nonzero"):
+            rk = ransac_rank._ladder_rank_cuda(*ops_c, thr_c, zmode, 2, 5)
+            rp = ransac_rank.ladder_rank_plain(*ops_c, thr_c, zmode)
+            torch.cuda.synchronize()
+            d = float((rk - rp).abs().max())
+            check(torch.equal(rk, rp), f"rank {tag} zmode={zmode} differs from its plain twin "
+                  f"on {int((rk != rp).sum())} models (max |diff| {d})")
+        print(f"[3 ransac_rank] {tag}: equal to the twin in both zmodes (torch.equal), "
+              f"ranks {float(rp.min()):.0f}-{float(rp.max()):.0f} (nonzero)")
+
+    def rank_pair(ops_c):
+        """This tree's B3 and, with --parent, the parent's on the same operands."""
+        new = lambda: ransac_rank._ladder_rank_cuda(*ops_c, thr_sq, "pos", 2, 5)  # noqa: E731
+        if "ransac_rank" not in parent:
+            return new, None
+        out = torch.empty(ops_c[0].shape[0], device=dev)
+        launch = (*(t.data_ptr() for t in ops_c), out.data_ptr(), ops_c[0].shape[0],
+                  ops_c[1].shape[1], float(thr_sq), -2, 5, 0, dev.index,
+                  dispatch.stream_handle(dev))
+
+        def old():
+            check(parent["ransac_rank"](*launch) == 0, "the parent's ransac_rank did not launch")
+            return out
+        return new, old
+
+    def rank_bound(ops_c):
+        Hm_c, M_c = ops_c[0].shape[0], ops_c[1].shape[1]
+        return bound((Hm_c * 13 + 7 * M_c) * 4, Hm_c * M_c * 44.0, FP32_FLOPS)
+
     results["ransac_rank"] = dict(
-        max_abs_err=rank_err,
-        ms=cuda_ms(lambda: ransac_rank._ladder_rank_cuda(*ops, thr_sq, "pos", 2, 5)),
-        device_ms=device_ms(lambda: ransac_rank._ladder_rank_cuda(*ops, thr_sq, "pos", 2, 5),
-                            "rank_kernel"),
-        plain_ms=cuda_ms(lambda: ransac_rank.ladder_rank_plain(*ops, thr_sq, "pos")))
+        max_abs_err=0.0,
+        plain_ms=cuda_ms(lambda: ransac_rank.ladder_rank_plain(*ops, thr_sq, "pos")),
+        **timed_pair("ransac_rank Hm=1024 x M=1024", *rank_pair(ops), "rank_kernel", card,
+                     rank_bound(ops)))
+    timed_pair(f"ransac_rank Hm=1024 x M={AKAZE_RANK_M}", *rank_pair(ops_m), "rank_kernel",
+               card, rank_bound(ops_m))
+    plain_m = cuda_ms(lambda: ransac_rank.ladder_rank_plain(*ops_m, thr_sq, "pos"), 2, 20)
+    print(f"[3 ransac_rank Hm=1024 x M={AKAZE_RANK_M}] plain {plain_m:.4f} ms  ({card})")
+    del ops_m, planted, tiled, X_m
 
     # B4: the D=2 stacked raw raster of the bench scene (two views), with a
     # planted plateau of equal scores: bright squares on black, whose
@@ -630,14 +748,14 @@ def main(argv=None) -> int:
     def fast_pair(img):
         """This tree's B4 and, with --parent, the parent's on the same raster."""
         new = lambda: fast._fast_nms_cuda(img, FAST_THRESHOLD)  # noqa: E731
-        if parent is None:
+        if "fast_nms" not in parent:
             return new, None
         outs = [torch.empty_like(img) for _ in range(2)]
         launch = (img.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(), *img.shape,
                   float(FAST_THRESHOLD), dev.index, dispatch.stream_handle(dev))
 
         def old():
-            check(parent.coloc_fast_nms(*launch) == 0, "the parent's fast_nms did not launch")
+            check(parent["fast_nms"](*launch) == 0, "the parent's fast_nms did not launch")
         return new, old
 
     rk, err = check_fast("D=2 raster, planted", raster, FAST_THRESHOLD)
@@ -702,8 +820,7 @@ def main(argv=None) -> int:
     results["k2nn"].update(bound(Q * 65 + T * 68 + 12 * Q, 2.0 * Q * T * 512, INT8_OPS))
     nb = Xs.shape[0]
     results["p3p"].update(bound(nb * 72 + nb * 4 * 52, nb * 1500.0, FP32_FLOPS))
-    Hm, M = ops[0].shape[0], ops[1].shape[1]
-    results["ransac_rank"].update(bound((Hm * 13 + 7 * M) * 4, Hm * M * 44.0, FP32_FLOPS))
+    results["ransac_rank"].update(rank_bound(ops))
     results["fast_nms"].update(bound(raster.numel() * 12, raster.numel() * 180.0, FP32_FLOPS))
     results["extract"].update(bound(sps.stacked.numel() * 4 + row0.numel() * (PH * PW * 4 + 8),
                                     0.0, FP32_FLOPS))

@@ -109,11 +109,18 @@ class ColocSession:
     last_rejected, the (D,) gate rejections of the last frame."""
 
     def __init__(self, config: ColocConfig, Ks, dists, out_dir: str = "",
-                 seed: int = 0, device=None):
-        if out_dir:
+                 seed: int = 0, profile: bool = False, viz=None,
+                 debug_dir: str = "", device=None):
+        asked = [name for name, given in (("out_dir", bool(out_dir)),
+                                          ("profile", bool(profile)),
+                                          ("viz", viz is not None),
+                                          ("debug_dir", bool(debug_dir)))
+                 if given]
+        if asked:
             raise NotImplementedError(
-                "out_dir: the pose, gate and map logs (io/loggers) are not "
-                "ported yet (ROADMAP A5)")
+                f"{', '.join(asked)}: the session's logs, stage profiler, "
+                "SVG debug output and live view are not ported yet "
+                "(ROADMAP A5b)")
         self.config = config
         self.device = dispatch.default_device(device)
         D = config.num_drones

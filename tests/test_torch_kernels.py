@@ -16,6 +16,7 @@ from coloc_tpu_torch.geometry import camera as cam_ops
 from coloc_tpu_torch.geometry import fivept, p3p
 from coloc_tpu_torch.io import synthetic
 from coloc_tpu_torch.ops import diffusion, dispatch, fast, hamming, patches, ransac_rank
+from rank_cases import THR_SQ, planted_rank_operands
 
 pytestmark = pytest.mark.cuda
 
@@ -118,35 +119,77 @@ def _samples(rng, B):
     return torch.from_numpy(ma.X)[idx], b[idx]
 
 
-@pytest.mark.parametrize("B", [1, 256, 1000])
-def test_p3p_kernel_equals_plain(dev, B):
+def _degenerate(Xs, bs, n):
+    """The first n samples with collinear world points (the third the
+    midpoint of the first two), the next n with two equal bearings."""
+    Xs, bs = Xs.clone(), bs.clone()
+    Xs[:n, 2] = (Xs[:n, 0] + Xs[:n, 1]) * 0.5
+    bs[n:2 * n, 1] = bs[n:2 * n, 0]
+    return Xs, bs
+
+
+@pytest.mark.parametrize("B,n_degenerate", [(1, 0), (255, 0), (256, 0), (1000, 0), (256, 2)])
+def test_p3p_kernel_equals_plain(dev, B, n_degenerate):
+    """B2 against its twin: float32 P3P is held statistically (ROADMAP C8),
+    valid masks agree on >= 99% of samples and flats within 1e-4 where both
+    are valid; B = 255 leaves a partial last sample group of the kernel's
+    warp, and degenerate samples (collinear points, equal bearings) sit
+    among normal ones."""
     Xs, bs = _samples(np.random.default_rng(B), B)
+    Xs, bs = _degenerate(Xs, bs, n_degenerate)
+    before = dispatch.launch_counts()["p3p"]
     fk, vk = p3p.p3p_flats_batch(Xs.to(dev), bs.to(dev))
     fp, vp = p3p.p3p_flats_plain(Xs.to(dev), bs.to(dev))
     torch.cuda.synchronize()
+    assert dispatch.launch_counts()["p3p"] == before + 1
     assert float((vk == vp).all(dim=1).float().mean()) >= 0.99
     both = vk & vp
     rel = (fk - fp).abs()[both] / (1.0 + fp.abs()[both])
     assert float(rel.max()) <= 1e-4
 
 
-@pytest.mark.parametrize("zmode", ["pos", "nonzero"])
-@pytest.mark.parametrize("Hm,M", [(1, 5), (300, 257), (1024, 1024)])
-def test_rank_kernel_equals_plain(dev, zmode, Hm, M):
+def _rank_operands(Hm, M):
     rng = np.random.default_rng(Hm + M)
-    Xs, bs = _samples(rng, max(Hm // 4, 1))
+    Xs, bs = _samples(rng, max((Hm + 3) // 4, 1))
     flats, _ = p3p.p3p_flats_plain(Xs, bs)
     flats = flats.reshape(-1, 12)[:Hm]
     X = torch.from_numpy(rng.uniform(-3, 3, (M, 3)).astype(np.float32)) + torch.tensor([0, 0, 8.0])
     b = torch.nn.functional.normalize(X + torch.from_numpy(rng.normal(0, 0.01, (M, 3)).astype(np.float32)), dim=-1)
     valid = torch.from_numpy(rng.random(M) > 0.2)
-    ops = [t.to(dev) for t in ransac_rank.p3p_operands(flats, X, b, valid, 451.2)]
+    return ransac_rank.p3p_operands(flats, X, b, valid, 451.2)
+
+
+@pytest.mark.parametrize("zmode", ["pos", "nonzero"])
+@pytest.mark.parametrize("Hm,M", [(1, 5), (9, 300), (300, 257), (1024, 1024), (1024, 5000)])
+def test_rank_kernel_equals_plain(dev, zmode, Hm, M):
+    """B3 equals its twin exactly: every value is the twin's operation
+    (-fmad=false) and the counts are integers."""
+    ops = [t.to(dev) for t in _rank_operands(Hm, M)]
+    before = dispatch.launch_counts()["ransac_rank"]
     got = ransac_rank.ladder_rank(*ops, 16.0, zmode)
     want = ransac_rank.ladder_rank_plain(*ops, 16.0, zmode)
     torch.cuda.synchronize()
-    d = (got - want).abs()
-    assert float((d == 0).float().mean()) >= 0.999
-    assert float(d.max()) <= 2.0
+    assert dispatch.launch_counts()["ransac_rank"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("zmode", ["pos", "nonzero"])
+@pytest.mark.parametrize("reps,models", [(1, 6), (97, 1000)])
+def test_rank_kernel_planted_edges(dev, zmode, reps, models):
+    """B3 on tests/rank_cases.py's planted inputs (a Z plane exactly 0,
+    points behind, |Z| at 1e-9 and just below, masked points, a NaN column
+    and a NaN observation, residuals exactly on a rung), alone and tiled
+    over the kernel's point splits and model tiles; and the generic rung
+    path (4 rungs)."""
+    eflat, xh, obs, maskf = (torch.from_numpy(a) for a in planted_rank_operands(reps))
+    eflat = eflat.repeat(-(-models // eflat.shape[0]), 1)[:models].contiguous()
+    ops = [t.to(dev) for t in (eflat, xh, obs, maskf)]
+    for n_rungs in (5, 4):
+        got = ransac_rank.ladder_rank(*ops, THR_SQ, zmode, 2, n_rungs)
+        want = ransac_rank.ladder_rank_plain(*ops, THR_SQ, zmode, 2, n_rungs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert float(got[0]) > 0 and float(got[1]) == 0   # identity counts, Z = 0 never
 
 
 def _squares(h, w, value):

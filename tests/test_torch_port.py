@@ -1,8 +1,10 @@
-"""The port's shared layer against coloc_tpu: config, convert, workload, and
-that the port never imports jax or coloc_tpu."""
+"""The port's shared layer against coloc_tpu: config, convert, workload,
+ColocSession's constructor, and that the port never imports jax or
+coloc_tpu."""
 
 import ast
 import dataclasses
+import inspect
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -89,6 +91,42 @@ def test_consistent_mapdb_equals_reference():
     np.testing.assert_array_equal(got.valid, np.asarray(want.valid))
     mapdb = convert.mapdb_from_numpy(got, "cpu")
     assert mapdb.X.shape == (300, 3) and int(mapdb.count) == 300
+
+
+def _session_args(D=2):
+    K = np.array([[451.2, 0, 376], [0, 451.2, 240], [0, 0, 1]], np.float32)
+    return tcfg.ColocConfig(num_drones=D), np.stack([K] * D), np.zeros((D, 3), np.float32)
+
+
+def test_session_init_takes_the_reference_parameters_in_order():
+    from coloc_tpu.session import ColocSession as JSession
+    from coloc_tpu_torch.session import ColocSession as TSession
+
+    ref = list(inspect.signature(JSession.__init__).parameters.values())
+    port = list(inspect.signature(TSession.__init__).parameters.values())
+    assert [(p.name, p.default) for p in port[:len(ref)]] == \
+        [(p.name, p.default) for p in ref]
+    assert [(p.name, p.default) for p in port[len(ref):]] == [("device", None)]
+
+
+@pytest.mark.parametrize("kwarg", [{"profile": True}, {"viz": object()},
+                                   {"debug_dir": "debug"}])
+def test_session_init_refuses_unported_options(kwarg):
+    from coloc_tpu_torch.session import ColocSession
+
+    with pytest.raises(NotImplementedError, match=f"{next(iter(kwarg))}.*A5b"):
+        ColocSession(*_session_args(), device="cpu", **kwarg)
+
+
+def test_session_init_defaults_construct_on_cpu():
+    from coloc_tpu_torch.session import ColocSession
+
+    s = ColocSession(*_session_args(), device="cpu")
+    assert s.device == torch.device("cpu")
+    assert not s.map_ready and s.frame == 0 and s.Ks.shape == (2, 3, 3)
+    # positional arguments land where the reference puts them
+    s = ColocSession(*_session_args(), "", 3, False, None, "", "cpu")
+    assert s.device == torch.device("cpu")
 
 
 def test_cpu_tensors_take_the_plain_path():

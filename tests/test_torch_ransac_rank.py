@@ -3,8 +3,10 @@
 The rank's plain twin (of csrc/ransac_rank.cu) is held against coloc_tpu's
 Pallas rank kernel (interpret mode) on the same models and correspondences,
 in both zmodes: ranks equal on >= 99.9% of models and within 2 elsewhere
-(float rounding at an exact rung boundary). The NFA scores and Floyd
-sampling are compared on the same inputs / the same uniforms.
+(float rounding at an exact rung boundary), and exactly on planted inputs
+whose arithmetic is exact. The NFA
+scores and Floyd sampling are compared on the same inputs / the same
+uniforms.
 """
 
 import jax
@@ -19,6 +21,7 @@ from coloc_tpu.ops import ransac_rank as jrr
 
 from coloc_tpu_torch import ransac as transac
 from coloc_tpu_torch.ops import ransac_rank as trr
+from rank_cases import THR_SQ, planted_rank_operands
 
 F = 451.2
 
@@ -80,6 +83,26 @@ def test_nonzero_zmode_matches_reference_homography_rank():
     got = trr.ladder_rank(eflat, xh, obs, t(valid).float(), 16.0, "nonzero").numpy()
     assert want.max() > 0
     _assert_ranks_agree(got, want)
+
+
+@pytest.mark.parametrize("zmode", ["pos", "nonzero"])
+def test_planted_edges_equal_reference_exactly(zmode):
+    """The planted edge inputs (tests/rank_cases.py: a Z plane exactly 0,
+    points behind the camera, |Z| at 1e-9 and just below, a masked point, a
+    NaN column and a NaN observation, residuals exactly on a rung) through
+    the twin and through coloc_tpu's rank kernel (interpreted, operands
+    padded as its wrappers pad them): the values are exact, so the ranks
+    are equal."""
+    eflat, xh, obs, maskf = planted_rank_operands()
+    ep, (xp, op, mp), Hm, _ = jrr._pad_operands(
+        jnp.asarray(eflat), [jnp.asarray(xh), jnp.asarray(obs), jnp.asarray(maskf)[None]])
+    want = np.asarray(jrr._p3p_ladder_rank_pallas(
+        ep[None], xp[None], op[None], mp[None], THR_SQ, 2, 5, zmode=zmode,
+        interpret=True))[0, :Hm]
+    got = trr.ladder_rank_plain(*(torch.from_numpy(a) for a in (eflat, xh, obs, maskf)),
+                                THR_SQ, zmode, 2, 5).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert want[0] > 0 and want[1] == 0       # the identity counts, Z = 0 never
 
 
 def test_nfa_scores_match_reference():
