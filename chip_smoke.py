@@ -18,12 +18,15 @@ matcher against a 262144-row bank. Phases:
                 the shapes of the main path, with kernel and plain times;
                 B1 also at the AKAZE frame's and the large map's shapes,
                 B2 at B=1000, B3 at the AKAZE frame's M=5000, at small
-                shapes and on planted edge inputs, and B4 on the D=1
-                raster, with wrapper and profiler device times, and with
-                --parent DIR (a directory holding the parent commit's
-                k2nn.cu, fast_nms.cu, p3p.cu and ransac_rank.cu) the
-                parent's kernels timed in turns with these on the same
-                inputs, and B2 held bit for bit against the parent's
+                shapes and on planted edge inputs, B4 on the D=1
+                raster, B10 at the frame's four octaves, at B=2 and at
+                edge shapes, B11 on the frame's two sampler calls and
+                at K=1 and NS=1, with wrapper and profiler device times,
+                and with --parent DIR (a directory holding the parent
+                commit's k2nn.cu, fast_nms.cu, p3p.cu, ransac_rank.cu,
+                fed_octave.cu and sample_raster.cu) the parent's kernels
+                timed in turns with these on the same inputs, and B2,
+                B10 and B11 held bit for bit against the parent's
   4. slice    — FRAMES frames through match_with_map + localize_image on
                 random features, checked against the identity ground
                 truth, plus frame 0 through the plain CPU path with the
@@ -57,6 +60,7 @@ of stdout are one JSON object per kernel and the run's result line.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -83,7 +87,8 @@ TWOSTAGE_Q, TWOSTAGE_T, TWOSTAGE_CALLS = 1024, 262144, 20
 # fp32 FLOP/s outside the tensor cores, int8 tensor-core OP/s
 HBM_BPS, FP32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 # the kernels --parent builds from the parent commit's sources
-PARENT_KERNELS = ("k2nn", "fast_nms", "p3p", "ransac_rank")
+PARENT_KERNELS = ("k2nn", "fast_nms", "p3p", "ransac_rank", "fed_octave",
+                  "sample_raster")
 # B3 at the AKAZE frame's correspondence count (4e)
 AKAZE_RANK_M = 5000
 
@@ -208,7 +213,6 @@ def build_parent(src_dir: Path, names=PARENT_KERNELS):
     common.cuh from there or from this checkout), built by nvcc into a
     temporary directory and loaded with ctypes. Prints ptxas' registers and
     spills of each. -> {name: the C function coloc_<name>}."""
-    import ctypes
     import tempfile
 
     from coloc_tpu_torch.ops import _build
@@ -849,6 +853,7 @@ def main(argv=None) -> int:
           f"fivept_front differs from its plain twin (max |diff| {err})")
     results["fivept_front"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: fivept._front_cuda(xs)),
+        device_ms=device_ms(lambda: fivept._front_cuda(xs), "front_kernel"),
         plain_ms=cuda_ms(lambda: fivept.front_plain(xs), 2, 10), library_ms=None,
         **bound(NB * (20 + 887) * 4, NB * 1e4, FP32_FLOPS))
     c, sc_ = fivept.dk_normalise(fr_p[3])
@@ -865,6 +870,7 @@ def main(argv=None) -> int:
     comp[:, :, -1] = -c[:10].T
     results["fivept_dk"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: fivept._dk_cuda(c, sc_)),
+        device_ms=device_ms(lambda: fivept._dk_cuda(c, sc_), "dk_kernel"),
         plain_ms=cuda_ms(lambda: fivept.dk_roots_plain(c, sc_), 2, 10),
         library_ms=cuda_ms(lambda: torch.linalg.eigvals(comp), 2, 20),
         **bound(NB * (12 * 4 + 10 * 5), NB * 2.5e4, FP32_FLOPS))
@@ -883,6 +889,7 @@ def main(argv=None) -> int:
           f"{int(dk_p[1].sum())} real roots, {int(po_k[1].sum())} valid E of {po_k[1].numel()}")
     results["fivept_polish"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: fivept._polish_cuda(*pol)),
+        device_ms=device_ms(lambda: fivept._polish_cuda(*pol), "polish_kernel"),
         plain_ms=cuda_ms(lambda: fivept.polish_plain(*pol), 2, 10), library_ms=None,
         **bound(NB * (906 * 4 + 30 + 30 * 37), NB * 30 * 1e4, FP32_FLOPS))
 
@@ -912,6 +919,7 @@ def main(argv=None) -> int:
     Hm = Es.shape[0]
     results["epi_rank"] = dict(
         max_abs_err=float(d.max()), ms=cuda_ms(lambda: ransac_rank._epi_rank_cuda(*eops, 2, 5)),
+        device_ms=device_ms(lambda: ransac_rank._epi_rank_cuda(*eops, 2, 5), "epi_rank_kernel"),
         plain_ms=cuda_ms(lambda: ransac_rank.epi_rank_plain(*eops), 2, 20), library_ms=None,
         **bound((Hm * 28 + 28 * Mc + 1) * 4, Hm * Mc * 70.0, FP32_FLOPS))
     del fr_k, fr_p, po_k, po_p, rk, rp
@@ -919,10 +927,11 @@ def main(argv=None) -> int:
     # B10: the bench frame's four octaves (B=1), each octave's input the
     # last sublevel of the one before halved, as build_scale_space_batch
     # feeds them; then octave 0 of both views (B=2, two k^2). The kernel
-    # repeats the twin's arithmetic in its order (-fmad=false): bit-equal.
-    # Bound: the input and the 4 S output planes once; ~22 flops a pixel
-    # for the first conductivity, ~21 an explicit step, ~58 a sublevel's
-    # Scharr passes and response.
+    # repeats the twin's arithmetic in its order (-fmad=false): bit-equal
+    # to the twin and, with --parent, to the parent's kernel. Bound: the
+    # input and the 4 S output planes once; ~22 flops a pixel for the first
+    # conductivity, ~21 an explicit step, ~58 a sublevel's Scharr passes
+    # and response.
     images01 = diffusion._true_div(views, 255.0)
     k2_01 = diffusion.contrast_factor(images01) ** 2
     schedule = diffusion.octave_schedule(4, 4, 1.6, 0.25)
@@ -933,38 +942,96 @@ def main(argv=None) -> int:
         L_o = diffusion.fed_octave_plain(L_o, k2_o, cycles, s4)[0][:, -1, ::2, ::2].contiguous()
     fed_cases.append(("octave 0, B=2", images01.contiguous(), k2_01.contiguous(),
                       *schedule[0][1:]))
-    fed = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
-    fed_bytes = fed_ops = 0.0
-    for tag, L_c, k2_c, cycles, s4 in fed_cases:
+
+    def fed_pair(L_c, k2_c, cycles, s4):
+        """This tree's B10 and, with --parent, the parent's launch on the
+        same inputs and the planes it writes."""
+        new = lambda: diffusion._fed_octave_cuda(L_c, k2_c, cycles, s4)  # noqa: E731
+        if "fed_octave" not in parent:
+            return new, None, None
+        nb, h, w = L_c.shape
+        out = torch.empty((4, nb, len(cycles), h, w), device=dev)
+        scr = torch.empty((3, nb, h, w), device=dev)
+        plan = diffusion._plan(cycles, s4)
+        launch = (L_c.data_ptr(), k2_c.data_ptr(), *(o.data_ptr() for o in out),
+                  scr.data_ptr(), nb, h, w, len(cycles), *(ctypes.addressof(a) for a in plan),
+                  dev.index, dispatch.stream_handle(dev))
+
+        def old():
+            check(parent["fed_octave"](*launch) == 0, "the parent's fed_octave did not launch")
+        old.plan = plan    # the schedule's host arrays live as long as the launcher
+        return new, old, out
+
+    def check_fed(tag, L_c, k2_c, cycles, s4):
+        """B10 against its twin, all four planes bit for bit."""
         out_k = diffusion._fed_octave_cuda(L_c, k2_c, cycles, s4)
         out_p = diffusion.fed_octave_plain(L_c, k2_c, cycles, s4)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
         check(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
               f"fed_octave {tag} differs from its plain twin (max |diff| {err})")
-        ms = cuda_ms(lambda: diffusion._fed_octave_cuda(L_c, k2_c, cycles, s4), 3, 20)
-        pms = cuda_ms(lambda: diffusion.fed_octave_plain(L_c, k2_c, cycles, s4), 2, 10)
+        return out_k, err
+
+    fed = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, device_ms=0.0,
+               parent_ms=0.0, parent_device_ms=0.0)
+    fed_bytes = fed_ops = 0.0
+    for tag, L_c, k2_c, cycles, s4 in fed_cases:
+        out_k, err = check_fed(tag, L_c, k2_c, cycles, s4)
+        new, old, out_o = fed_pair(L_c, k2_c, cycles, s4)
+        if old is not None:
+            old()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(out_k, out_o)),
+                  f"fed_octave {tag} differs from the parent's kernel")
         px = L_c.numel()
         nbytes = px * 4 * (1 + 4 * len(cycles)) + 4 * L_c.shape[0]
         ops = px * (22.0 + sum(21.0 * len(taus) + 58.0 for taus in cycles))
         b = bound(nbytes, ops, FP32_FLOPS)
         print(f"[3 fed_octave] {tag} {tuple(L_c.shape)}, {sum(map(len, cycles))} steps: "
-              f"bit-equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-              f"{b['bound_ms']:.5f} ms ({b['bound_by']})")
+              f"bit-equal to the twin" + ("" if old is None else " and the parent's kernel"))
+        t = timed_pair(f"fed_octave {tag}", new, old, "fed_octave_kernel", card, b)
+        pms = cuda_ms(lambda: diffusion.fed_octave_plain(L_c, k2_c, cycles, s4), 2, 10)
         fed["max_abs_err"] = max(fed["max_abs_err"], err)
         if L_c.shape[0] == 1:        # a frame's four launches
-            fed["ms"] += ms
             fed["plain_ms"] += pms
+            for k in ("ms", "device_ms", "parent_ms", "parent_device_ms"):
+                fed[k] = None if fed[k] is None or t[k] is None else fed[k] + t[k]
             fed_bytes += nbytes
             fed_ops += ops
     results["fed_octave"] = dict(fed, **bound(fed_bytes, fed_ops, FP32_FLOPS))
-    del out_k, out_p
+    print(f"[3 fed_octave] a frame's four octaves: wrapper {fmt_ms(fed['ms'])}, device "
+          f"{fmt_ms(fed['device_ms'])}; parent wrapper {fmt_ms(fed['parent_ms'])}, device "
+          f"{fmt_ms(fed['parent_device_ms'])}  ({card})")
+    # edge shapes at B=2 with distinct k^2, on octave 0's and octave 3's
+    # schedules: images smaller than the halo, one row or column, widths off
+    # the tile grid, a frame one pixel larger than the bench's; and the
+    # Plan's limits, 8 sublevels and 128 steps in cycles of 20 and 12 (each
+    # cut into chunks between grid barriers)
+    erng = np.random.default_rng(SEED + 10)
+    k2_e = torch.tensor([0.01, 0.04], device=dev)
+    long_plan = ((tuple(diffusion.fed_tau_cycle(30.0)),) * 4
+                 + (tuple(diffusion.fed_tau_cycle(10.0)),) * 4,
+                 tuple(float(i + 1) for i in range(8)))
+    check(len(long_plan[0]) == 8 and sum(map(len, long_plan[0])) == 128,
+          f"the long plan has {[len(c) for c in long_plan[0]]} steps")
+    for h, w in ((1, 1), (1, 37), (37, 1), (9, 130), (37, 61), (481, 753)):
+        L_e = torch.from_numpy(erng.uniform(0, 1, (2, h, w)).astype(np.float32)).to(dev)
+        plans = [("octave 0", *schedule[0][1:]), ("octave 3", *schedule[3][1:])]
+        if (h, w) in ((9, 130), (37, 61)):
+            plans.append(("8 sublevels, 128 steps", *long_plan))
+        for ptag, cycles, s4 in plans:
+            _, err = check_fed(f"{h}x{w} {ptag}", L_e, k2_e, cycles, s4)
+            fed["max_abs_err"] = max(fed["max_abs_err"], err)
+    print("[3 fed_octave] edge shapes 1x1, 1x37, 37x1, 9x130, 37x61, 481x753 at B=2 on "
+          "octave 0's and 3's schedules, and 8 sublevels of 128 steps: bit-equal")
+    del out_k
 
     # B11: the AKAZE frame's two sampler calls at 5000 keypoints, their
     # inputs captured from the frontend's own calls (orientation: 2
-    # channels, 48 rows; descriptor: 3 channels, 64 rows). A gather: exact.
-    # Bound: bytes, the outputs and coordinates once and each distinct
-    # raster element the samples read.
+    # channels, 48 rows; descriptor: 3 channels, 64 rows). A gather: exact,
+    # and with --parent equal to the parent's kernel. Bound: bytes, the
+    # outputs and coordinates once and each distinct raster element the
+    # samples read.
     opts_a = config.DetectorOptions(width=W, height=H, max_keypoints=AKAZE_KP,
                                     num_levels=LEVELS, backend="akaze")
     sampler_calls = []
@@ -980,19 +1047,46 @@ def main(argv=None) -> int:
     finally:
         patches.sample_raster_flat = real_sampler
     check(len(sampler_calls) == 2, f"the AKAZE frame made {len(sampler_calls)} sampler calls")
-    samp = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
+
+    def sample_pair(args):
+        """This tree's B11 and, with --parent, the parent's launch on the
+        same inputs and the output it writes."""
+        new = lambda: patches._sample_raster_cuda(*args)  # noqa: E731
+        if "sample_raster" not in parent:
+            return new, None, None
+        src2, stride, row0_s, col0_s, lx, ly, C, ph, pw = args
+        out = torch.empty((C, *lx.shape), device=dev)
+        launch = (src2.data_ptr(), row0_s.data_ptr(), col0_s.data_ptr(), lx.data_ptr(),
+                  ly.data_ptr(), out.data_ptr(), *src2.shape, stride, *lx.shape, C, ph, pw,
+                  dev.index, dispatch.stream_handle(dev))
+
+        def old():
+            check(parent["sample_raster"](*launch) == 0,
+                  "the parent's sample_raster did not launch")
+        return new, old, out
+
+    def check_sample(tag, args):
+        sk = patches._sample_raster_cuda(*args)
+        sp = patches.sample_raster_plain(*args)
+        torch.cuda.synchronize()
+        err = float((sk - sp).abs().max()) if sk.numel() else 0.0
+        check(torch.equal(sk, sp), f"sample_raster {tag} differs from its plain twin "
+              f"(max |diff| {err})")
+        return sk, err
+
+    samp = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, device_ms=0.0,
+                parent_ms=0.0, parent_device_ms=0.0)
     samp_bytes = 0.0
     for (src2, stride, row0_s, col0_s, lx, ly), kw in sampler_calls:
         C, ph, pw = kw["C"], kw.get("ph", patches.PH), kw["pw"]
         args = (src2, stride, row0_s, col0_s, lx, ly, C, ph, pw)
-        sk = patches._sample_raster_cuda(*args)
-        sp = patches.sample_raster_plain(*args)
-        torch.cuda.synchronize()
-        err = float((sk - sp).abs().max())
-        check(torch.equal(sk, sp), f"sample_raster C={C} differs from its plain twin "
-              f"(max |diff| {err})")
-        ms = cuda_ms(lambda: patches._sample_raster_cuda(*args))
-        pms = cuda_ms(lambda: patches.sample_raster_plain(*args), 2, 20)
+        tag = f"C={C}, NS={lx.shape[1]}"
+        sk, err = check_sample(tag, args)
+        new, old, out_o = sample_pair(args)
+        if old is not None:
+            old()
+            torch.cuda.synchronize()
+            check(torch.equal(sk, out_o), f"sample_raster {tag} differs from the parent's kernel")
         K_s, NS = lx.shape
         ci = torch.round(torch.clamp(lx, 0, pw - 1)).long()
         ri = torch.round(torch.clamp(ly, 0, ph - 1)).long()
@@ -1001,15 +1095,40 @@ def main(argv=None) -> int:
                                                                  c, ph, pw)
                                          for c in range(C))])
         nbytes = C * K_s * NS * 4 + 2 * K_s * NS * 4 + 2 * K_s * 4 + torch.unique(read).numel() * 2
-        print(f"[3 sample_raster] C={C}, {ph}x{pw} windows, K={K_s}, NS={NS}, src "
-              f"{tuple(src2.shape)} bf16: exact; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {nbytes / HBM_BPS * 1e3:.5f} ms (bytes)")
+        print(f"[3 sample_raster] {tag}, {ph}x{pw} windows, K={K_s}, src {tuple(src2.shape)} "
+              f"bf16: exact" + ("" if old is None else ", equal to the parent's kernel"))
+        t = timed_pair(f"sample_raster {tag}", new, old, "sample_raster_kernel", card,
+                       bound(nbytes, 0.0, FP32_FLOPS))
+        pms = cuda_ms(lambda: patches.sample_raster_plain(*args), 2, 20)
         samp["max_abs_err"] = max(samp["max_abs_err"], err)
-        samp["ms"] += ms
         samp["plain_ms"] += pms
+        for k in ("ms", "device_ms", "parent_ms", "parent_device_ms"):
+            samp[k] = None if samp[k] is None or t[k] is None else samp[k] + t[k]
         samp_bytes += nbytes
     results["sample_raster"] = dict(samp, **bound(samp_bytes, 0.0, FP32_FLOPS))
-    del sk, sp, sampler_calls
+    print(f"[3 sample_raster] a frame's two calls: wrapper {fmt_ms(samp['ms'])}, device "
+          f"{fmt_ms(samp['device_ms'])}; parent wrapper {fmt_ms(samp['parent_ms'])}, device "
+          f"{fmt_ms(samp['parent_device_ms'])}  ({card})")
+    # edges: K=1, NS=1, both, NS off the 4-sample grid, and coordinate rows
+    # not 16-byte aligned (a view at an odd offset), on the descriptor
+    # call's raster with .5 ties and origins past the raster's end
+    src2, stride = sampler_calls[1][0][:2]
+    R_s, WP_s = src2.shape
+    for K_e, NS_e, C_e, shift in ((1, 464, 3, 0), (77, 1, 2, 0), (1, 1, 3, 0), (5, 49, 3, 0),
+                                  (9, 8, 2, 1)):
+        lx_e = erng.uniform(-6, 133, K_e * NS_e + shift).astype(np.float32)
+        ly_e = erng.uniform(-6, 69, K_e * NS_e + shift).astype(np.float32)
+        lx_e[shift:shift + 2], ly_e[shift:shift + 2] = 2.5, 63.5
+        lx_t = torch.from_numpy(lx_e).to(dev)[shift:].view(K_e, NS_e)
+        ly_t = torch.from_numpy(ly_e).to(dev)[shift:].view(K_e, NS_e)
+        row0_e = torch.from_numpy(erng.integers(0, R_s + 20, K_e).astype(np.int32)).to(dev)
+        col0_e = torch.from_numpy(erng.integers(0, WP_s + 9, K_e).astype(np.int32)).to(dev)
+        _, err = check_sample(f"K={K_e} NS={NS_e}", (src2, stride, row0_e, col0_e, lx_t, ly_t,
+                                                    C_e, 64, 128))
+        samp["max_abs_err"] = max(samp["max_abs_err"], err)
+    print("[3 sample_raster] edges K=1, NS=1, both, NS=49 at K=5 and unaligned coordinate "
+          "rows: exact")
+    del sk, sampler_calls
 
     # B12: matching-shaped queries (each a bank row with ~40 bits flipped,
     # tests/test_hamming.py's construction) against a 262144-row bank, 5%
@@ -1045,6 +1164,7 @@ def main(argv=None) -> int:
     print(f"[3 k2nn_group] Q={TWOSTAGE_Q} x T={TWOSTAGE_T} ({G} groups): exact")
     results["k2nn_group"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: hamming._group_top2_cuda(q_pf, ts_bank)),
+        device_ms=device_ms(lambda: hamming._group_top2_cuda(q_pf, ts_bank), "k2nn_group_kernel"),
         plain_ms=cuda_ms(lambda: hamming.group_top2_plain(q_pf, ts_bank), 2, 10),
         library_ms=None,
         **bound(TWOSTAGE_Q * 16 + ts_bank.pf.shape[0] * 20 + 2 * TWOSTAGE_Q * G * 4,

@@ -61,17 +61,46 @@ def test_fed_tau_cycle_equals_reference(tau_max):
 
 def test_contrast_factor_same_bin(images):
     """The same histogram bin on every test frame, k within 1e-6 relative:
-    a one-bin difference would shift every level."""
+    a one-bin difference would shift every level. On failure the message
+    gives each side's gradient maximum hmax (k = hmax (bin + 1) / 300), the
+    pixel where it is reached, and the port's k computed again from a
+    fresh copy of the frames: which side moved, where, and whether the
+    move repeats."""
     img = images / 255.0
     kj = np.asarray(jax.vmap(jdiff.contrast_factor)(jnp.asarray(img)))
     kt = tdiff.contrast_factor(_t(img)).numpy()
+    seen = []
     for b in range(2):
         gx, gy = jdiff._scharr(jnp.asarray(img[b]))
-        hj = float(jnp.max(jnp.sqrt(gx * gx + gy * gy)))
+        mj = np.asarray(jnp.sqrt(gx * gx + gy * gy))
         tx, ty = tdiff._scharr(_t(img[b]))
-        ht = float(torch.sqrt(tx * tx + ty * ty).max())
-        assert round(kj[b] * 300 / hj) == round(kt[b] * 300 / ht)
-    np.testing.assert_allclose(kt, kj, rtol=1e-6)
+        mt = torch.sqrt(tx * tx + ty * ty).numpy()
+        hj, ht = float(mj.max()), float(mt.max())
+        seen.append(f"frame {b}: coloc_tpu hmax {hj!r} at {np.unravel_index(mj.argmax(), mj.shape)}"
+                    f", port hmax {ht!r} at {np.unravel_index(mt.argmax(), mt.shape)}")
+        assert round(kj[b] * 300 / hj) == round(kt[b] * 300 / ht), seen[-1]
+    if not np.allclose(kt, kj, rtol=1e-6, atol=0.0):
+        again = tdiff.contrast_factor(_t(images / 255.0)).numpy()
+        seen.append(f"k coloc_tpu {kj.tolist()}, port {kt.tolist()}, port again "
+                    f"{again.tolist()}")
+    np.testing.assert_allclose(kt, kj, rtol=1e-6, err_msg="; ".join(seen))
+
+
+def test_contrast_factor_deterministic(images):
+    """The port's k is a function of the frames alone: bit-identical with
+    1, 2 and the default number of torch threads and on repeated calls
+    (every op in contrast_factor is one IEEE operation a value, a maximum
+    or an integer sum, so no thread split or vector width may move it)."""
+    img = _t(images / 255.0)
+    threads = torch.get_num_threads()
+    want = tdiff.contrast_factor(img.clone())
+    try:
+        for n in (1, 2, threads):
+            torch.set_num_threads(n)
+            for _ in range(3):
+                assert torch.equal(tdiff.contrast_factor(img.clone()), want), n
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _octave_inputs(h, w):

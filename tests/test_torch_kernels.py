@@ -376,6 +376,46 @@ def test_fed_octave_kernel_equals_plain(dev, h, w):
         assert torch.equal(g, w_), name
 
 
+def _fed_equal_one_launch(dev, L, k2, cycles, sigma4s):
+    """One fed_octave call on the card: one launch, all four planes
+    bit-equal to the twin."""
+    before = dispatch.launch_counts()["fed_octave"]
+    got = diffusion.fed_octave(L, k2, cycles, sigma4s)
+    want = diffusion.fed_octave_plain(L, k2, cycles, sigma4s)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["fed_octave"] == before + 1
+    for g, w_, name in zip(got, want, ("L", "Lx", "Ly", "response")):
+        assert g.shape == (L.shape[0], len(cycles), *L.shape[1:])
+        assert torch.equal(g, w_), name
+
+
+@pytest.mark.parametrize("octave", [0, 3])
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 37), (37, 1), (9, 130), (37, 61), (481, 753)])
+def test_fed_octave_kernel_edge_shapes(dev, h, w, octave):
+    """B10 where its tiles meet the image border: images smaller than the
+    halo, one row or column, widths off the tile grid, a frame one pixel
+    larger than the bench's; B = 2 with distinct k^2, on octave 0's
+    schedule (5 + 4 + 4 + 5 steps) and octave 3's (3 + 4 + 4 + 5)."""
+    rng = np.random.default_rng(h * w + octave)
+    L = torch.from_numpy(rng.uniform(0, 1, (2, h, w)).astype(np.float32)).to(dev)
+    k2 = torch.tensor([0.01, 0.04], device=dev)
+    _, cycles, sigma4s = diffusion.octave_schedule(4, 4, 1.6, 0.25)[octave]
+    _fed_equal_one_launch(dev, L, k2, cycles, sigma4s)
+
+
+@pytest.mark.parametrize("h,w", [(9, 130), (37, 61)])
+def test_fed_octave_kernel_plan_limits(dev, h, w):
+    """B10 at the Plan's limits: 8 sublevels and 128 steps, in cycles of 20
+    and 12 steps that the kernel cuts into chunks between grid barriers."""
+    rng = np.random.default_rng(h + w)
+    L = torch.from_numpy(rng.uniform(0, 1, (2, h, w)).astype(np.float32)).to(dev)
+    k2 = torch.tensor([0.01, 0.04], device=dev)
+    cycles = ((tuple(diffusion.fed_tau_cycle(30.0)),) * 4
+              + (tuple(diffusion.fed_tau_cycle(10.0)),) * 4)
+    assert [len(c) for c in cycles] == [20] * 4 + [12] * 4
+    _fed_equal_one_launch(dev, L, k2, cycles, tuple(float(i + 1) for i in range(8)))
+
+
 @pytest.mark.parametrize("C,ph,NS", [(2, 48, 49), (3, 64, 464)])
 def test_sample_raster_kernel_equals_plain(dev, C, ph, NS):
     """B11 at K = 77 (no multiple of any tile), with .5 coordinate ties,
@@ -401,6 +441,33 @@ def test_sample_raster_kernel_equals_plain(dev, C, ph, NS):
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["sample_raster"] == before + 1
     want = patches.sample_raster_plain(src, stride, *args, C, ph, pw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("K,NS,C,shift", [(1, 464, 3, 0), (77, 1, 2, 0), (1, 1, 3, 0),
+                                           (5, 49, 3, 0), (9, 8, 2, 1)])
+def test_sample_raster_kernel_edges(dev, K, NS, C, shift):
+    """B11 at K = 1, NS = 1, both, NS off the 4-sample grid, and coordinate
+    rows that are not 16-byte aligned (a view at an odd offset): origins
+    past the raster's end, .5 ties; exact, one launch a call."""
+    rng = np.random.default_rng(K * NS + shift)
+    stride, WP, ph, pw = 300, 768, 64, 128
+    src = torch.from_numpy(rng.uniform(-3, 3, (C * stride, WP)).astype(np.float32)
+                           ).to(torch.bfloat16)
+    row0 = torch.from_numpy(rng.integers(0, C * stride + 20, K).astype(np.int32))
+    col0 = torch.from_numpy(rng.integers(0, WP + 9, K).astype(np.int32))
+    lx = rng.uniform(-6, pw + 5, K * NS + shift).astype(np.float32)
+    ly = rng.uniform(-6, ph + 5, K * NS + shift).astype(np.float32)
+    lx[shift:shift + 2], ly[shift:shift + 2] = 2.5, ph - 0.5
+    lx_d = torch.from_numpy(lx).to(dev)[shift:].view(K, NS)
+    ly_d = torch.from_numpy(ly).to(dev)[shift:].view(K, NS)
+    before = dispatch.launch_counts()["sample_raster"]
+    got = patches.sample_raster_flat(src.to(dev), stride, row0.to(dev), col0.to(dev), lx_d,
+                                     ly_d, C=C, ph=ph, pw=pw)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["sample_raster"] == before + 1
+    want = patches.sample_raster_plain(src, stride, row0, col0, lx_d.cpu(), ly_d.cpu(), C, ph,
+                                       pw)
     assert torch.equal(got.cpu(), want)
 
 
