@@ -21,12 +21,16 @@ matcher against a 262144-row bank. Phases:
                 shapes and on planted edge inputs, B4 on the D=1
                 raster, B10 at the frame's four octaves, at B=2 and at
                 edge shapes, B11 on the frame's two sampler calls and
-                at K=1 and NS=1, with wrapper and profiler device times,
-                and with --parent DIR (a directory holding the parent
+                at K=1 and NS=1, B9 and B12 on the planted edge inputs of
+                tests/rank_cases.py, B12 also at a bank with a partial
+                last group, with wrapper and profiler device times, and
+                with --parent DIR (a directory holding the parent
                 commit's k2nn.cu, fast_nms.cu, p3p.cu, ransac_rank.cu,
-                fed_octave.cu and sample_raster.cu) the parent's kernels
-                timed in turns with these on the same inputs, and B2,
-                B10 and B11 held bit for bit against the parent's
+                fed_octave.cu, sample_raster.cu, epi_rank.cu and
+                k2nn_group.cu) the parent's kernels timed in turns with
+                these on the same inputs, B2, B10, B11 and B12 held bit
+                for bit against the parent's, and B9 against the
+                parent's wherever the parent equals the twin
   4. slice    — FRAMES frames through match_with_map + localize_image on
                 random features, checked against the identity ground
                 truth, plus frame 0 through the plain CPU path with the
@@ -41,7 +45,8 @@ matcher against a 262144-row bank. Phases:
                 five-point AC-RANSAC, triangulation, full BA), then
                 SESSION_FRAMES frames of intra_pose_all, checked against
                 the ground-truth trajectory; init_map again through the
-                plain CPU path with the same five-point draws
+                plain CPU path with the same five-point draws; B9 timed
+                at the correspondence count init_map passed it
   4e akaze    — AKAZE_FRAMES frames of the AKAZE frame op (5000 keypoints,
                 Lowe-ratio matching against 8192 landmarks, P3P), stage
                 times, a profile, and the card's features against the
@@ -83,12 +88,13 @@ AKAZE_KP, AKAZE_LANDMARKS = 5000, 8192
 AKAZE_FRAMES, AKAZE_STAGED, AKAZE_PROFILED = 20, 5, 2
 # the two-stage matcher: planted queries against a bank at its design size
 TWOSTAGE_Q, TWOSTAGE_T, TWOSTAGE_CALLS = 1024, 262144, 20
+TWOSTAGE_PARTIAL_T = 100000     # 48 whole groups and one of 1696 rows
 # the least time of a kernel's work on an H100 SXM at 700 W: HBM bytes/s,
 # fp32 FLOP/s outside the tensor cores, int8 tensor-core OP/s
 HBM_BPS, FP32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 # the kernels --parent builds from the parent commit's sources
 PARENT_KERNELS = ("k2nn", "fast_nms", "p3p", "ransac_rank", "fed_octave",
-                  "sample_raster")
+                  "sample_raster", "epi_rank", "k2nn_group")
 # B3 at the AKAZE frame's correspondence count (4e)
 AKAZE_RANK_M = 5000
 
@@ -507,8 +513,9 @@ def main(argv=None) -> int:
         if ops or n_local or "p3p_kernel" in fn or "rank_kernel" in fn:
             print(f"    SASS {fn}: MMA {', '.join(ops) or 'none'}; {n_local} local-memory "
                   f"loads and stores")
-    check(any(ops for fn, (ops, _) in sass.items() if "k2nn_mma_kernel" in fn),
-          "B1's kernel shows no MMA instruction in its SASS")
+    for kern, tag in (("k2nn_mma_kernel", "B1"), ("k2nn_group_kernel", "B12")):
+        check(any(ops for fn, (ops, _) in sass.items() if kern in fn),
+              f"{tag}'s kernel shows no MMA instruction in its SASS")
     parent = {}
     if args.parent is not None:
         t0 = time.perf_counter()
@@ -907,22 +914,81 @@ def main(argv=None) -> int:
     f_sq = float(K[0, 0]) ** 2
     eops = tuple(t.contiguous() for t in ransac_rank.epipolar_operands(
         Es, e1, e2, e_valid, f_sq, f_sq, cfg.ransac.essential_threshold ** 2))
-    rk = ransac_rank._epi_rank_cuda(*eops, 2, 5)
-    rp = ransac_rank.epi_rank_plain(*eops)
-    torch.cuda.synchronize()
-    d = (rk - rp).abs()
-    equal = float((d == 0).float().mean())
-    check(equal >= 0.999 and float(d.max()) <= 2.0,
-          f"epi_rank equal on {equal:.4f}, max |diff| {float(d.max())}")
-    print(f"[3 epi_rank] Hm={Es.shape[0]} x M={Mc}: equal on {equal:.4f}, max |diff| "
-          f"{float(d.max())}, best rank {float(rk.max())}")
     Hm = Es.shape[0]
+
+    def epi_pair(ops_c, n_rungs=5):
+        """This tree's B9 and, with --parent, the parent's on the same operands."""
+        new = lambda: ransac_rank._epi_rank_cuda(*ops_c, 2, n_rungs)  # noqa: E731
+        if "epi_rank" not in parent:
+            return new, None
+        out = torch.empty(ops_c[0].shape[0], device=dev)
+        launch = (*(t.data_ptr() for t in ops_c), out.data_ptr(), ops_c[0].shape[0],
+                  ops_c[1].shape[1], 3 - n_rungs, n_rungs, dev.index, dispatch.stream_handle(dev))
+
+        def old():
+            check(parent["epi_rank"](*launch) == 0, "the parent's epi_rank did not launch")
+            return out
+        return new, old
+
+    def epi_bound(ops_c):
+        """Bytes of the operands and rank; ~70 flops a pair, counted over the
+        points whose mask is not 0 (a masked point adds nothing)."""
+        Hm_c, M_c = ops_c[0].shape[0], ops_c[1].shape[1]
+        return bound((Hm_c * 28 + 28 * M_c + 1) * 4,
+                     Hm_c * int((ops_c[2] != 0).sum()) * 70.0, FP32_FLOPS)
+
+    def check_epi(tag, ops_c, n_rungs=5):
+        """B9 against its twin, torch.equal, one launch; with --parent, the
+        parent's ranks that differ from the twin's counted, and this tree's
+        held to the parent's where there are none."""
+        before = dispatch.launch_counts()["epi_rank"]
+        rk = ransac_rank.epi_rank(*ops_c, 2, n_rungs)
+        rp = ransac_rank.epi_rank_plain(*ops_c, 2, n_rungs)
+        torch.cuda.synchronize()
+        check(dispatch.launch_counts()["epi_rank"] == before + 1, f"epi_rank {tag}: launches")
+        check(torch.equal(rk, rp), f"epi_rank {tag} n_rungs={n_rungs} differs from its plain "
+              f"twin on {int((rk != rp).sum())} models (max |diff| {float((rk - rp).abs().max())})")
+        _, old = epi_pair(ops_c, n_rungs)
+        note = ""
+        if old is not None:
+            ro = old()
+            torch.cuda.synchronize()
+            n_diff = int((ro != rp).sum())
+            if n_diff == 0:
+                check(torch.equal(rk, ro), f"epi_rank {tag} differs from the parent's kernel")
+            note = (f"; the parent's kernel differs from the twin on {n_diff} of "
+                    f"{rp.numel()} ranks (max |diff| {float((ro - rp).abs().max())})")
+        print(f"[3 epi_rank] {tag}, {n_rungs} rungs: equal to the twin (torch.equal), ranks "
+              f"{float(rp.min()):.0f}-{float(rp.max()):.0f}{note}")
+
+    check_epi(f"Hm={Hm} x M={Mc}", eops)
+    # the card test's three shapes (tests/test_torch_kernels.py), built as
+    # it builds them
+    for Hm_t, M_t in ((1, 5), (1110, 300), (7680, 1024)):
+        trng = np.random.default_rng(Hm_t + M_t)
+        Es_t = torch.from_numpy(trng.normal(size=(Hm_t, 3, 3)).astype(np.float32))
+        x1_t = torch.from_numpy(trng.uniform(-0.6, 0.6, (M_t, 2)).astype(np.float32))
+        x2_t = x1_t + torch.from_numpy(trng.normal(0, 0.01, (M_t, 2)).astype(np.float32))
+        v_t = torch.from_numpy(trng.random(M_t) > 0.2)
+        check_epi(f"test shape Hm={Hm_t} x M={M_t}", [t.to(dev).contiguous() for t in
+                  ransac_rank.epipolar_operands(Es_t, x1_t, x2_t, v_t, 451.2 ** 2,
+                                                480.0 ** 2, 16.0)])
+    # tests/rank_cases.py's planted epipolar inputs: compares exactly on a
+    # rung, zero and clamped denominators, NaN data, a masked band, masks of
+    # 1/2; Hm = 1 and off the CTA's model tile, M off the 4-point grid and
+    # over two stages; 5 rungs and the generic loop
+    for Hm_t, M_t, odd in ((1, 5, False), (33, 301, True), (1000, 1027, False),
+                           (70, 2100, True)):
+        planted_e = [torch.from_numpy(a).to(dev)
+                     for a in cases.planted_epi_operands(Hm_t, M_t, odd_mask=odd)]
+        for n_rungs in (5, 4):
+            check_epi(f"planted Hm={Hm_t} x M={M_t}", planted_e, n_rungs)
     results["epi_rank"] = dict(
-        max_abs_err=float(d.max()), ms=cuda_ms(lambda: ransac_rank._epi_rank_cuda(*eops, 2, 5)),
-        device_ms=device_ms(lambda: ransac_rank._epi_rank_cuda(*eops, 2, 5), "epi_rank_kernel"),
-        plain_ms=cuda_ms(lambda: ransac_rank.epi_rank_plain(*eops), 2, 20), library_ms=None,
-        **bound((Hm * 28 + 28 * Mc + 1) * 4, Hm * Mc * 70.0, FP32_FLOPS))
-    del fr_k, fr_p, po_k, po_p, rk, rp
+        max_abs_err=0.0, plain_ms=cuda_ms(lambda: ransac_rank.epi_rank_plain(*eops), 2, 20),
+        library_ms=None, **timed_pair(f"epi_rank Hm={Hm} x M={Mc}", *epi_pair(eops),
+                                      "epi_rank_kernel", card, epi_bound(eops)),
+        **epi_bound(eops))
+    del fr_k, fr_p, po_k, po_p
 
     # B10: the bench frame's four octaves (B=1), each octave's input the
     # last sublevel of the one before halved, as build_scale_space_batch
@@ -1154,22 +1220,74 @@ def main(argv=None) -> int:
                     valid=t_valid_g)
     ts_bank = pack_map_bank_twostage(mapdb_g)
     q_pf = hamming.prefilter_words(q_desc_g)
-    gk = hamming._group_top2_cuda(q_pf, ts_bank)
-    gp = hamming.group_top2_plain(q_pf, ts_bank)
-    torch.cuda.synchronize()
-    err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
-    check(all(torch.equal(a, b) for a, b in zip(gk, gp)),
-          f"k2nn_group differs from its plain twin (max |diff| {err})")
-    G = ts_bank.pf.shape[0] // hamming._GROUP
-    print(f"[3 k2nn_group] Q={TWOSTAGE_Q} x T={TWOSTAGE_T} ({G} groups): exact")
+
+    def group_pair(qp, bk):
+        """This tree's B12 and, with --parent, the parent's on the same bank."""
+        new = lambda: hamming._group_top2_cuda(qp, bk)  # noqa: E731
+        if "k2nn_group" not in parent:
+            return new, None
+        Qc, G_c = qp.shape[0], bk.pf.shape[0] // hamming._GROUP
+        outs = [torch.empty((Qc, G_c), dtype=torch.int32, device=dev) for _ in range(2)]
+        launch = (qp.data_ptr(), bk.pf.data_ptr(), bk.penrcol.data_ptr(),
+                  *(o.data_ptr() for o in outs), Qc, bk.desc.shape[0], G_c, dev.index,
+                  dispatch.stream_handle(dev))
+
+        def old():
+            check(parent["k2nn_group"](*launch) == 0, "the parent's k2nn_group did not launch")
+            return outs
+        return new, old
+
+    def check_group(tag, qp, bk):
+        """B12 against its twin, both outputs torch.equal, one launch; with
+        --parent, against the parent's kernel too."""
+        before = dispatch.launch_counts()["k2nn_group"]
+        gk = hamming.group_top2(qp, bk)
+        gp = hamming.group_top2_plain(qp, bk)
+        torch.cuda.synchronize()
+        check(dispatch.launch_counts()["k2nn_group"] == before + 1, f"k2nn_group {tag}: launches")
+        err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+        check(all(torch.equal(a, b) for a, b in zip(gk, gp)),
+              f"k2nn_group {tag} differs from its plain twin (max |diff| {err})")
+        _, old = group_pair(qp, bk)
+        if old is not None:
+            go = old()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(gk, go)),
+                  f"k2nn_group {tag} differs from the parent's kernel")
+        print(f"[3 k2nn_group] {tag} ({bk.pf.shape[0] // hamming._GROUP} groups): equal to the "
+              f"twin" + ("" if old is None else " and the parent's kernel"))
+        return err
+
+    def group_bound(Qc, bk):
+        G_c = bk.pf.shape[0] // hamming._GROUP
+        return bound(Qc * 16 + bk.pf.shape[0] * 20 + 2 * Qc * G_c * 4,
+                     2.0 * Qc * bk.desc.shape[0] * 128, INT8_OPS)
+
+    err = check_group(f"Q={TWOSTAGE_Q} x T={TWOSTAGE_T}", q_pf, ts_bank)
     results["k2nn_group"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: hamming._group_top2_cuda(q_pf, ts_bank)),
-        device_ms=device_ms(lambda: hamming._group_top2_cuda(q_pf, ts_bank), "k2nn_group_kernel"),
-        plain_ms=cuda_ms(lambda: hamming.group_top2_plain(q_pf, ts_bank), 2, 10),
-        library_ms=None,
-        **bound(TWOSTAGE_Q * 16 + ts_bank.pf.shape[0] * 20 + 2 * TWOSTAGE_Q * G * 4,
-                2.0 * TWOSTAGE_Q * TWOSTAGE_T * 128, INT8_OPS))
-    del gk, gp
+        max_abs_err=err, plain_ms=cuda_ms(lambda: hamming.group_top2_plain(q_pf, ts_bank), 2, 10),
+        library_ms=None, **timed_pair(f"k2nn_group Q={TWOSTAGE_Q} x T={TWOSTAGE_T}",
+                                      *group_pair(q_pf, ts_bank), "k2nn_group_kernel", card,
+                                      group_bound(TWOSTAGE_Q, ts_bank)),
+        **group_bound(TWOSTAGE_Q, ts_bank))
+    # a bank with a partial last group (1696 of its 2048 rows), timed
+    part_bank = hamming.pack_bank_twostage(t_desc_g[:TWOSTAGE_PARTIAL_T],
+                                           t_valid_g[:TWOSTAGE_PARTIAL_T])
+    check_group(f"Q={TWOSTAGE_Q} x T={TWOSTAGE_PARTIAL_T}", q_pf, part_bank)
+    timed_pair(f"k2nn_group Q={TWOSTAGE_Q} x T={TWOSTAGE_PARTIAL_T}",
+               *group_pair(q_pf, part_bank), "k2nn_group_kernel", card,
+               group_bound(TWOSTAGE_Q, part_bank))
+    # tests/rank_cases.py's edges: a last group of one real row, groups
+    # with one and no valid rows, duplicates within and across groups,
+    # all-zero and all-ones rows and queries, a query equal to a bank row;
+    # Q below 16 and off the 128-query tile
+    for Qc, Tc in ((5, 2049), (130, 6145), (3, 2), (40, 100), (1024, 6145)):
+        qd_e, td_e, tv_e = cases.twostage_edge_case(Qc, Tc)
+        bank_e = hamming.pack_bank_twostage(torch.from_numpy(td_e.view(np.int32)).to(dev),
+                                            torch.from_numpy(tv_e).to(dev))
+        check_group(f"edges Q={Qc} x T={Tc}", hamming.prefilter_words(
+            torch.from_numpy(qd_e.view(np.int32)).to(dev)), bank_e)
+    del part_bank
     for name, r in results.items():
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         if "device_ms" in r:
@@ -1415,7 +1533,30 @@ def main(argv=None) -> int:
               f"{percentiles(np, sess_ms[1:])}; frame 1 {sess_ms[0]:.3f} ms  ({card})")
         return sess, launches
 
-    sess, counts["4d session"] = drive_session("4d", cfg_d)
+    # capture the operands init_map hands B9, to time it at that shape
+    epi_calls = []
+    real_epi = ransac_rank.epi_rank
+
+    def capture_epi(*args, **kw):
+        epi_calls.append(args)
+        return real_epi(*args, **kw)
+
+    ransac_rank.epi_rank = capture_epi
+    try:
+        sess, counts["4d session"] = drive_session("4d", cfg_d)
+    finally:
+        ransac_rank.epi_rank = real_epi
+    check(len(epi_calls) == 1, f"4d's init_map ranked {len(epi_calls)} times")
+    ops_4d = [t.contiguous() for t in epi_calls[0][:4]]
+    rk = ransac_rank._epi_rank_cuda(*ops_4d, 2, 5)
+    rp = ransac_rank.epi_rank_plain(*ops_4d)
+    torch.cuda.synchronize()
+    check(torch.equal(rk, rp), "epi_rank at 4d's shape differs from its plain twin")
+    print(f"[4d epi_rank] init_map's B9 call: Hm={ops_4d[0].shape[0]} x M={ops_4d[1].shape[1]}, "
+          f"{int((ops_4d[2] != 0).sum())} points unmasked; equal to the twin")
+    timed_pair(f"epi_rank at 4d's Hm={ops_4d[0].shape[0]} x M={ops_4d[1].shape[1]}",
+               *epi_pair(ops_4d), "epi_rank_kernel", card, epi_bound(ops_4d))
+    del epi_calls, rk, rp
 
     # init_map on the card and through the plain CPU path, the same
     # five-point draws: both bootstrap nearly the same map
@@ -1452,10 +1593,12 @@ def main(argv=None) -> int:
         ours = sum(e.time_range.elapsed_us() for e in kernels
                    if any(k in e.name for k in ("front_kernel", "dk_kernel",
                                                 "polish_kernel", "epi_rank_kernel")))
+        b9 = sum(e.time_range.elapsed_us() for e in kernels if "epi_rank_kernel" in e.name)
         print(f"[4d profile] init_map: {len(kernels)} device kernels, device busy "
               f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
               f"({100.0 - 100.0 * busy_us / wall_us:.1f}% idle, profiler on); "
-              f"B6-B9 {ours / 1e3:.4f} ms = {100.0 * ours / busy_us:.2f}% of device time")
+              f"B6-B9 {ours / 1e3:.4f} ms = {100.0 * ours / busy_us:.2f}% of device time, "
+              f"B9 {b9 / 1e3:.4f} ms")
     else:
         print("[4d profile] the profiler saw no device time: not measured")
 

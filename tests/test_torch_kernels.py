@@ -16,7 +16,8 @@ from coloc_tpu_torch.geometry import camera as cam_ops
 from coloc_tpu_torch.geometry import fivept, p3p
 from coloc_tpu_torch.io import synthetic
 from coloc_tpu_torch.ops import diffusion, dispatch, fast, hamming, patches, ransac_rank
-from rank_cases import THR_SQ, planted_rank_operands
+from rank_cases import (THR_SQ, planted_epi_operands, planted_rank_operands,
+                        twostage_edge_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -352,9 +353,26 @@ def test_epi_rank_kernel_equals_plain(dev, Hm, M):
     want = ransac_rank.epi_rank_plain(*ops)
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["epi_rank"] == before + 1
-    d = (got - want).abs()
-    assert float((d == 0).float().mean()) >= 0.999
-    assert float(d.max()) <= 2.0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("Hm,M,odd_mask", [(1, 5, False), (33, 301, True), (1000, 1027, False),
+                                           (70, 2100, True)])
+def test_epi_rank_kernel_planted_edges(dev, Hm, M, odd_mask):
+    """B9 on tests/rank_cases.py's planted epipolar inputs (compares exactly
+    on a rung, zero and clamped denominators, NaN data, a masked band, masks
+    of 1/2 on the float path), at Hm = 1 and off the 32-model tile, M = 5,
+    off the 4-point grid and over two 1024-point stages; 5 rungs and the
+    generic loop (4): equal to the twin, one launch a call."""
+    ops = [torch.from_numpy(a).to(dev) for a in planted_epi_operands(Hm, M, odd_mask=odd_mask)]
+    for n_rungs in (5, 4):
+        before = dispatch.launch_counts()["epi_rank"]
+        got = ransac_rank.epi_rank(*ops, 2, n_rungs)
+        want = ransac_rank.epi_rank_plain(*ops, 2, n_rungs)
+        torch.cuda.synchronize()
+        assert dispatch.launch_counts()["epi_rank"] == before + 1
+        assert torch.equal(got, want)
+        assert float(got[0]) > 0
 
 
 @pytest.mark.parametrize("h,w", [(37, 61), (120, 188)])
@@ -499,3 +517,23 @@ def test_k2nn_group_kernel_equals_plain(dev, Q, T):
     for g, w in zip(out, ref):
         assert torch.equal(g.cpu(), w)
     assert int(out[0][0]) == 3 and int(out[1][0]) == 0 and int(out[2][0]) == 0
+
+
+@pytest.mark.parametrize("Q,T", [(5, 2049), (130, 6145), (3, 2), (40, 100), (1024, 6145)])
+def test_k2nn_group_kernel_edges(dev, Q, T):
+    """B12 on tests/rank_cases.py's two-stage edges (a last group of one
+    real row, groups with one and no valid rows, duplicates within and
+    across groups, all-zero and all-ones rows and queries, a query equal
+    to a bank row), Q below 16 and off the 128-query tile: equal to the
+    twin, one launch a call."""
+    qd, td, tv = twostage_edge_case(Q, T)
+    bank = hamming.pack_bank_twostage(torch.from_numpy(td.view(np.int32)).to(dev),
+                                      torch.from_numpy(tv).to(dev))
+    q_pf = hamming.prefilter_words(torch.from_numpy(qd.view(np.int32)).to(dev))
+    before = dispatch.launch_counts()["k2nn_group"]
+    got = hamming.group_top2(q_pf, bank)
+    want = hamming.group_top2_plain(q_pf, bank)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["k2nn_group"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

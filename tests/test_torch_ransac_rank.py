@@ -21,7 +21,7 @@ from coloc_tpu.ops import ransac_rank as jrr
 
 from coloc_tpu_torch import ransac as transac
 from coloc_tpu_torch.ops import ransac_rank as trr
-from rank_cases import THR_SQ, planted_rank_operands
+from rank_cases import THR_SQ, planted_epi_operands, planted_rank_operands
 
 F = 451.2
 
@@ -103,6 +103,25 @@ def test_planted_edges_equal_reference_exactly(zmode):
                                 THR_SQ, zmode, 2, 5).numpy()
     np.testing.assert_array_equal(got, want)
     assert want[0] > 0 and want[1] == 0       # the identity counts, Z = 0 never
+
+
+@pytest.mark.parametrize("Hm,M,n_rungs,odd_mask", [(1, 5, 5, False), (33, 301, 4, True)])
+def test_epi_rank_planted_edges_match_reference(Hm, M, n_rungs, odd_mask):
+    """B9's twin against coloc_tpu's epipolar rank kernel (interpreted,
+    operands padded as its wrapper pads them) on tests/rank_cases.py's
+    planted epipolar inputs: compares exactly on a rung, zero and clamped
+    denominators, NaN data, a masked band, masks of 1/2, M off the 4-point
+    grid, Hm = 1 and the generic rung count. Held at the statistical
+    tolerance of the reference comparisons (XLA:CPU contracts FMAs)."""
+    emat, dmat, maskf, c = planted_epi_operands(Hm, M, odd_mask=odd_mask)
+    ep, (dp, mp), Hm_, _ = jrr._pad_operands(jnp.asarray(emat),
+                                            [jnp.asarray(dmat), jnp.asarray(maskf)[None]])
+    want = np.asarray(jrr._epi_ladder_rank_pallas(
+        ep[None], dp[None], mp[None], jnp.asarray(c), 2, n_rungs, interpret=True))[0, :Hm_]
+    got = trr.epi_rank_plain(*(torch.from_numpy(a) for a in (emat, dmat, maskf, c)),
+                             2, n_rungs).numpy()
+    _assert_ranks_agree(got, want)
+    assert want[0] > 0
 
 
 def test_nfa_scores_match_reference():

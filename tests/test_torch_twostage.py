@@ -18,6 +18,7 @@ from coloc_tpu_torch import config as tcfg
 from coloc_tpu_torch import matching as tmatching
 from coloc_tpu_torch import types as ttypes
 from coloc_tpu_torch.ops import hamming as th
+from rank_cases import twostage_edge_case
 
 
 def _desc(rng, n):
@@ -76,6 +77,26 @@ def test_group_top2_plain_matches_interpreted_kernel():
     for g, w in zip(got, want):
         assert g.shape == (Q, 3)
         np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:Q])
+
+
+@pytest.mark.parametrize("Q,T", [(5, 2048 + 1), (40, 3 * 2048 + 1)])
+def test_group_top2_plain_matches_interpreted_kernel_edges(Q, T):
+    """tests/rank_cases.py's B12 edges: a last group of one real row, a
+    group with one valid row and (at 3 groups) one with none, a row
+    duplicated within a group and across groups, all-zero and all-ones
+    rows and queries, a query equal to a bank row, Q below 16."""
+    qd, td, tv = twostage_edge_case(Q, T)
+    st_sub, penrcol, _, _, _ = jh.pack_bank_twostage(jnp.asarray(td), jnp.asarray(tv))
+    sq = jnp.pad(jh.unpack_bipolar(jnp.asarray(qd))[:, ::4], ((0, 512 - Q), (0, 0)))
+    want = jh._group_top2_pallas(sq, st_sub, penrcol, interpret=True)
+    bank = th.pack_bank_twostage(_t(td), torch.from_numpy(tv))
+    got = th.group_top2(th.prefilter_words(_t(qd)), bank)
+    for g, w in zip(got, want):
+        assert g.shape == (Q, -(-T // 2048))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:Q])
+    # query 0 is group 0's one valid row: its best there, its copy (the
+    # last group's one real row) best in that group
+    assert int(got[0][0, 0]) == 7 and int(got[0][0, -1]) == T - 1
 
 
 def test_twostage_matches_reference():
