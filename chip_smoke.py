@@ -23,14 +23,17 @@ matcher against a 262144-row bank. Phases:
                 edge shapes, B11 on the frame's two sampler calls and
                 at K=1 and NS=1, B9 and B12 on the planted edge inputs of
                 tests/rank_cases.py, B12 also at a bank with a partial
-                last group, with wrapper and profiler device times, and
-                with --parent DIR (a directory holding the parent
-                commit's k2nn.cu, fast_nms.cu, p3p.cu, ransac_rank.cu,
-                fed_octave.cu, sample_raster.cu, epi_rank.cu and
-                k2nn_group.cu) the parent's kernels timed in turns with
+                last group, B6 and B7 at B = 1, 37, 1000 and 2048 and on
+                io/synthetic's planted edges (NaN held by position), with
+                wrapper and profiler device times, and with --parent DIR
+                (a directory holding the parent commit's k2nn.cu,
+                fast_nms.cu, p3p.cu, ransac_rank.cu, fed_octave.cu,
+                sample_raster.cu, epi_rank.cu, k2nn_group.cu,
+                fivept_front.cu with its fivept_constraints.cuh, and
+                fivept_dk.cu) the parent's kernels timed in turns with
                 these on the same inputs, B2, B10, B11 and B12 held bit
-                for bit against the parent's, and B9 against the
-                parent's wherever the parent equals the twin
+                for bit against the parent's, and B6, B7 and B9 against
+                the parent's wherever the parent equals the twin
   4. slice    — FRAMES frames through match_with_map + localize_image on
                 random features, checked against the identity ground
                 truth, plus frame 0 through the plain CPU path with the
@@ -94,7 +97,7 @@ TWOSTAGE_PARTIAL_T = 100000     # 48 whole groups and one of 1696 rows
 HBM_BPS, FP32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 # the kernels --parent builds from the parent commit's sources
 PARENT_KERNELS = ("k2nn", "fast_nms", "p3p", "ransac_rank", "fed_octave",
-                  "sample_raster", "epi_rank", "k2nn_group")
+                  "sample_raster", "epi_rank", "k2nn_group", "fivept_front", "fivept_dk")
 # B3 at the AKAZE frame's correspondence count (4e)
 AKAZE_RANK_M = 5000
 
@@ -510,12 +513,17 @@ def main(argv=None) -> int:
     print_ptxas("build", _build.build_log)
     sass = sass_scan(_build.library_path(_build._nvcc()), _build._nvcc())
     for fn, (ops, n_local) in sass.items():
-        if ops or n_local or "p3p_kernel" in fn or "rank_kernel" in fn:
+        if ops or n_local or any(k in fn for k in ("p3p_kernel", "rank_kernel", "front_kernel",
+                                                   "dk_kernel")):
             print(f"    SASS {fn}: MMA {', '.join(ops) or 'none'}; {n_local} local-memory "
                   f"loads and stores")
     for kern, tag in (("k2nn_mma_kernel", "B1"), ("k2nn_group_kernel", "B12")):
         check(any(ops for fn, (ops, _) in sass.items() if kern in fn),
               f"{tag}'s kernel shows no MMA instruction in its SASS")
+    for kern, tag in (("front_kernel", "B6"), ("dk_kernel", "B7")):
+        n_local = [n for fn, (_, n) in sass.items() if kern in fn]
+        check(bool(n_local) and not any(n_local), f"{tag}'s kernel is missing from the SASS "
+              f"or loads or stores local memory ({n_local})")
     parent = {}
     if args.parent is not None:
         t0 = time.perf_counter()
@@ -842,45 +850,156 @@ def main(argv=None) -> int:
     # second half on a plane (the twin-solution regime of
     # tests/test_robust.py); each kernel against its twin on the same card
     # inputs, bit for bit (the kernels repeat the twins' arithmetic with
-    # -fmad=false)
+    # -fmad=false): NaN where the twin has NaN, equal float32 bits
+    # elsewhere. B6 and B7 also at the card test's B = 1, 37, 1000, at
+    # B = 2048 (timed), and on io/synthetic's planted edges, alone and
+    # after 37 ordinary samples; with --parent, held to the parent's
+    # kernels wherever the parent equals the twin
     NB = cfg.ransac.num_hypotheses
     srng = np.random.default_rng(SEED)
-    P = np.c_[srng.uniform(-3, 3, (NB * 5, 2)), srng.uniform(5, 15, (NB * 5, 1))]
-    P = P.reshape(NB, 5, 3)
-    P[NB // 2:, :, 2] = 8.0
-    Pc = P - [0.3, 0.05, 0.0]
-    s1 = torch.from_numpy((P[..., :2] / P[..., 2:]).astype(np.float32)).to(dev)
-    s2 = torch.from_numpy((Pc[..., :2] / Pc[..., 2:]).astype(np.float32)).to(dev)
-    xs = torch.cat([s1[:, :, 0], s1[:, :, 1], s2[:, :, 0], s2[:, :, 1]], dim=1).T.contiguous()
-    fr_k = fivept._front_cuda(xs)
-    fr_p = fivept.front_plain(xs)
-    torch.cuda.synchronize()
-    err = max(float((a - b).abs().max()) for a, b in zip(fr_k, fr_p))
-    check(all(torch.equal(a, b) for a, b in zip(fr_k, fr_p)),
-          f"fivept_front differs from its plain twin (max |diff| {err})")
+
+    def fivept_samples(n, rng):
+        P = np.c_[rng.uniform(-3, 3, (n * 5, 2)), rng.uniform(5, 15, (n * 5, 1))]
+        P = P.reshape(n, 5, 3)
+        P[n // 2:, :, 2] = 8.0
+        Pc = P - [0.3, 0.05, 0.0]
+        return ((P[..., :2] / P[..., 2:]).astype(np.float32),
+                (Pc[..., :2] / Pc[..., 2:]).astype(np.float32))
+
+    def pack_xs(x1, x2):
+        x1, x2 = torch.from_numpy(x1).to(dev), torch.from_numpy(x2).to(dev)
+        return torch.cat([x1[:, :, 0], x1[:, :, 1], x2[:, :, 0], x2[:, :, 1]],
+                         dim=1).T.contiguous()
+
+    def same_bits(a, b):
+        """NaN where b has NaN, the same float32 bits elsewhere (equal
+        masks)."""
+        if not b.is_floating_point():
+            return torch.equal(a, b)
+        nan = torch.isnan(b)
+        return bool(torch.equal(torch.isnan(a), nan)
+                    and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+    def front_pair(xs_c):
+        """This tree's B6 and, with --parent, the parent's on the same input."""
+        new = lambda: fivept._front_cuda(xs_c)  # noqa: E731
+        if "fivept_front" not in parent:
+            return new, None
+        B_c = xs_c.shape[1]
+        outs = [torch.empty(shape + (B_c,), device=dev) for shape in ((36,), (40, 20),
+                                                                      (40,), (11,))]
+        launch = (xs_c.data_ptr(), *(o.data_ptr() for o in outs), B_c, dev.index,
+                  dispatch.stream_handle(dev))
+
+        def old():
+            check(parent["fivept_front"](*launch) == 0, "the parent's fivept_front did not launch")
+            return outs
+        return new, old
+
+    def dk_pair(c_, s_):
+        """This tree's B7 and, with --parent, the parent's on the same input."""
+        new = lambda: fivept._dk_cuda(c_, s_)  # noqa: E731
+        if "fivept_dk" not in parent:
+            return new, None
+        outs = (torch.empty((10, c_.shape[1]), device=dev),
+                torch.empty((10, c_.shape[1]), dtype=torch.bool, device=dev))
+        launch = (c_.data_ptr(), s_.data_ptr(), *(o.data_ptr() for o in outs), c_.shape[1],
+                  dev.index, dispatch.stream_handle(dev))
+
+        def old():
+            check(parent["fivept_dk"](*launch) == 0, "the parent's fivept_dk did not launch")
+            return outs
+        return new, old
+
+    def check_twin(name, tag, got, want, old):
+        """got (this tree's outputs, one launch) against the twin's, and with
+        --parent against the parent's wherever the parent equals the twin."""
+        n_bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+        check(all(same_bits(g, w) for g, w in zip(got, want)),
+              f"{name} {tag} differs from its plain twin on {n_bad} entries (NaN counted)")
+        note = ""
+        if old is not None:
+            ro = old()
+            torch.cuda.synchronize()
+            n_diff = sum(0 if same_bits(o, w) else 1 for o, w in zip(ro, want))
+            if n_diff == 0:
+                check(all(same_bits(g, o) for g, o in zip(got, ro)),
+                      f"{name} {tag} differs from the parent's kernel")
+            note = (f"; the parent's kernel {'equals' if n_diff == 0 else 'differs from'} "
+                    f"the twin ({n_diff} outputs differ)")
+        n_nan = sum(int(torch.isnan(w.float()).sum()) for w in want)
+        print(f"[3 {name}] {tag}: bit-equal to the twin ({n_nan} NaN in the same places)"
+              f"{note}")
+
+    def check_front(tag, xs_c):
+        before = dispatch.launch_counts()["fivept_front"]
+        got = fivept.front(xs_c)
+        want = fivept.front_plain(xs_c)
+        torch.cuda.synchronize()
+        check(dispatch.launch_counts()["fivept_front"] == before + 1,
+              f"fivept_front {tag}: launches")
+        check_twin("fivept_front", tag, got, want, front_pair(xs_c)[1])
+        return want
+
+    def check_dk(tag, npoly_c):
+        c_, s_ = fivept.dk_normalise(npoly_c)
+        before = dispatch.launch_counts()["fivept_dk"]
+        got = fivept.dk_roots(c_, s_)
+        want = fivept.dk_roots_plain(c_, s_)
+        torch.cuda.synchronize()
+        check(dispatch.launch_counts()["fivept_dk"] == before + 1, f"fivept_dk {tag}: launches")
+        check_twin("fivept_dk", tag, got, (want[0], want[1]), dk_pair(c_, s_)[1])
+        return c_, s_, want
+
+    def front_bound(B_c):
+        """xs in, basis, md, coef and npoly out; ~10 kFLOP a sample."""
+        return bound(B_c * (20 + 887) * 4, B_c * 1e4, FP32_FLOPS)
+
+    def dk_bound(B_c):
+        """coef and scale in, roots and is_real out; ~25 kFLOP a polynomial."""
+        return bound(B_c * (12 * 4 + 10 * 5), B_c * 2.5e4, FP32_FLOPS)
+
+    s1_np, s2_np = fivept_samples(NB, srng)
+    s1, s2 = torch.from_numpy(s1_np).to(dev), torch.from_numpy(s2_np).to(dev)
+    xs = pack_xs(s1_np, s2_np)
+    fr_p = check_front(f"B={NB}", xs)
+    c, sc_, dk_p = check_dk(f"B={NB}", fr_p[3])
+    for B_t in (1, 37, 1000, 2048):
+        x1_t, x2_t = fivept_samples(B_t, np.random.default_rng(B_t))
+        xs_t = pack_xs(x1_t, x2_t)
+        check_dk(f"B={B_t}", check_front(f"B={B_t}", xs_t)[3])
+        if B_t == 2048:
+            xs_2048 = xs_t
+            c_2048, s_2048 = fivept.dk_normalise(fivept.front_plain(xs_t)[3])
+    e1, e2 = synthetic.five_point_edge_samples()
+    o1, o2 = fivept_samples(37, np.random.default_rng(37))
+    check_front("planted edges (repeated, collinear, all-zero, NaN points)", pack_xs(e1, e2))
+    check_front("37 samples + the planted edges",
+                pack_xs(np.concatenate([o1, e1]), np.concatenate([o2, e2])))
+    edge_polys = torch.from_numpy(synthetic.dk_edge_polys()).to(dev)
+    check_dk("planted edges (double root, lead 1e-14, inf, NaN)", edge_polys)
+    check_dk("B=37 + the planted edges",
+             torch.cat([fivept.front_plain(pack_xs(o1, o2))[3], edge_polys], dim=1))
     results["fivept_front"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: fivept._front_cuda(xs)),
-        device_ms=device_ms(lambda: fivept._front_cuda(xs), "front_kernel"),
-        plain_ms=cuda_ms(lambda: fivept.front_plain(xs), 2, 10), library_ms=None,
-        **bound(NB * (20 + 887) * 4, NB * 1e4, FP32_FLOPS))
-    c, sc_ = fivept.dk_normalise(fr_p[3])
-    dk_k = fivept._dk_cuda(c, sc_)
-    dk_p = fivept.dk_roots_plain(c, sc_)
-    torch.cuda.synchronize()
-    err = float((dk_k[0] - dk_p[0]).abs().max())
-    check(torch.equal(dk_k[0], dk_p[0]) and torch.equal(dk_k[1], dk_p[1]),
-          f"fivept_dk differs from its plain twin (max |diff| {err})")
+        max_abs_err=0.0, plain_ms=cuda_ms(lambda: fivept.front_plain(xs), 2, 10),
+        library_ms=None, **timed_pair(f"fivept_front B={NB}", *front_pair(xs), "front_kernel",
+                                      card, front_bound(NB)),
+        **front_bound(NB))
+    timed_pair("fivept_front B=2048", *front_pair(xs_2048), "front_kernel", card,
+               front_bound(2048))
     # the library yardstick: the roots as eigenvalues of the companion
     # matrices, one torch.linalg.eigvals call
     comp = torch.zeros((NB, 10, 10), device=dev)
     comp[:, 1:, :-1] = torch.eye(9, device=dev)
     comp[:, :, -1] = -c[:10].T
     results["fivept_dk"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: fivept._dk_cuda(c, sc_)),
-        device_ms=device_ms(lambda: fivept._dk_cuda(c, sc_), "dk_kernel"),
-        plain_ms=cuda_ms(lambda: fivept.dk_roots_plain(c, sc_), 2, 10),
+        max_abs_err=0.0, plain_ms=cuda_ms(lambda: fivept.dk_roots_plain(c, sc_), 2, 10),
         library_ms=cuda_ms(lambda: torch.linalg.eigvals(comp), 2, 20),
-        **bound(NB * (12 * 4 + 10 * 5), NB * 2.5e4, FP32_FLOPS))
+        **timed_pair(f"fivept_dk B={NB}", *dk_pair(c, sc_), "dk_kernel", card, dk_bound(NB)),
+        **dk_bound(NB))
+    timed_pair("fivept_dk B=2048", *dk_pair(c_2048, s_2048), "dk_kernel", card, dk_bound(2048))
+    print(f"[3 fivept] five_point_batch B={NB} (front, normalise, dk, seeds, polish): "
+          f"wrapper {fmt_ms(cuda_ms(lambda: fivept.five_point_batch(s1, s2), 3, 20))}  ({card})")
     delta = 0.01 * (dk_p[0].abs() + 1.0)
     seeds = torch.cat([dk_p[0], dk_p[0] + delta, dk_p[0] - delta]).contiguous()
     svalid = dk_p[1].repeat(3, 1).contiguous()
@@ -988,7 +1107,7 @@ def main(argv=None) -> int:
         library_ms=None, **timed_pair(f"epi_rank Hm={Hm} x M={Mc}", *epi_pair(eops),
                                       "epi_rank_kernel", card, epi_bound(eops)),
         **epi_bound(eops))
-    del fr_k, fr_p, po_k, po_p
+    del fr_p, po_k, po_p, xs_2048
 
     # B10: the bench frame's four octaves (B=1), each octave's input the
     # last sublevel of the one before halved, as build_scale_space_batch
@@ -1593,12 +1712,14 @@ def main(argv=None) -> int:
         ours = sum(e.time_range.elapsed_us() for e in kernels
                    if any(k in e.name for k in ("front_kernel", "dk_kernel",
                                                 "polish_kernel", "epi_rank_kernel")))
-        b9 = sum(e.time_range.elapsed_us() for e in kernels if "epi_rank_kernel" in e.name)
+        each = {tag: sum(e.time_range.elapsed_us() for e in kernels if k in e.name)
+                for tag, k in (("B6", "front_kernel"), ("B7", "dk_kernel"),
+                               ("B8", "polish_kernel"), ("B9", "epi_rank_kernel"))}
         print(f"[4d profile] init_map: {len(kernels)} device kernels, device busy "
               f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
               f"({100.0 - 100.0 * busy_us / wall_us:.1f}% idle, profiler on); "
-              f"B6-B9 {ours / 1e3:.4f} ms = {100.0 * ours / busy_us:.2f}% of device time, "
-              f"B9 {b9 / 1e3:.4f} ms")
+              f"B6-B9 {ours / 1e3:.4f} ms = {100.0 * ours / busy_us:.2f}% of device time ("
+              + ", ".join(f"{tag} {us / 1e3:.4f}" for tag, us in each.items()) + " ms)")
     else:
         print("[4d profile] the profiler saw no device time: not measured")
 

@@ -2,55 +2,102 @@
 // MD, Gauss-Jordan and Nistér's polynomials.
 //
 // Replaces coloc_tpu/geometry/fivept.py::_front_kernel (Pallas, launched by
-// _five_point_batch_pallas). Per sample (one thread each):
-//   1. the 5x9 epipolar design matrix A; complete QR of A^T by 5 Householder
-//      reflections; the 4 null vectors q_j = H1 ... H5 e_j, j = 5..8;
-//   2. the 10x20 cubic-constraint matrix M (fivept_constraints.cuh, generated
-//      from the plain twin's _constraint_rows: the same ~4000 operations in
-//      the same order);
-//   3. MD = [M; M D_x; M D_y; M D_z] (40x20), written for the polish;
-//   4. Gauss-Jordan with partial pivoting on M + 1e-10 [I | 0] (first row on
-//      ties, one-hot row swaps), then <k> = eq(4) - z eq(5), <l>, <m> and the
-//      degree-10 polynomial det [<k> <l> <m>].
-// Every formula repeats geometry/fivept.py::front_plain operation for
-// operation (built with -fmad=false), so kernel and twin agree bit for bit.
+// _five_point_batch_pallas). A warp a sample, kWarps samples a CTA:
+//   1. every lane runs the 5 Householder reflections of A^T (the 5x9
+//      epipolar design matrix; uniform code costs a warp what it costs one
+//      thread), then lane j < 4 applies them to e_{5+j}: null vector j;
+//   2. the 10x20 cubic-constraint matrix M (fivept_constraints.cuh,
+//      generated from the plain twin's polynomial arithmetic): lane
+//      3 r + c < 9 forms (E E^T)[r][c], the lanes swap them through shared
+//      memory, and each forms row 1 + 3 r + c; lanes 9-11 form a cofactor
+//      term of det E each and lane 9 adds them up (row 0); each row's lane
+//      also forms its three rows of M D_x, M D_y, M D_z (MD, written for
+//      the polish);
+//   3. Gauss-Jordan with partial pivoting on M + 1e-10 [I | 0] (first row
+//      on ties, one-hot row swaps): lane c < 20 holds column c in
+//      registers; each step every lane reads column k by __shfl_sync and
+//      forms the pivot row, the swapped column k and the pivot itself, so
+//      the only exchange a step is those 10 shuffles;
+//   4. lane 0 forms <k> = eq(4) - z eq(5), <l>, <m> and the degree-10
+//      polynomial det [<k> <l> <m>] from rows 4-9 of columns 10-19.
+// Outputs are staged in shared memory and the CTA writes each output row as
+// a run of kWarps consecutive samples. Every formula repeats
+// geometry/fivept.py::front_plain operation for operation (built with
+// -fmad=false; one-hot sums are exact in any order), so kernel and twin
+// agree bit for bit.
 //
 // Layout (samples on the last axis, as the TPU kernel's lanes): xs (20, B),
-// basis (36, B), md (40, 20, B), coef (40, B), npoly (11, B). With one thread
-// per sample, neighbouring threads touch neighbouring addresses.
+// basis (36, B), md (40, 20, B), coef (40, B), npoly (11, B).
 //
-// Bound: ~10 kFLOP a sample (4000 for M, ~4500 for Gauss-Jordan's 10 steps
-// over 10x20, the rest small): 2.6 MFLOP at B = 256, 40 ns at the fp32 peak;
-// the 0.9 MB of outputs take 0.27 us at 3.35 TB/s. B = 256 threads fill two
-// warps' worth of 8 blocks on 132 SMs, so the time is one thread's latency
-// through ~10 k dependent operations plus the launch: the design keeps the
-// whole sample in registers and local memory (no shared memory, no
-// synchronisation), which is the simple form; speed is later work.
+// Bound: ~10 kFLOP a sample and 3.6 KB of outputs: at B = 256 the bytes,
+// 0.27 us at 3.35 TB/s. One sample's dependent chain (Gauss-Jordan's 10
+// steps above all) sets the time at that size, so the design spreads a
+// sample over a warp (256 warps on the card at B = 256) and keeps every
+// array in registers at constant indices (no local memory).
 #include "common.cuh"
 #include "fivept_constraints.cuh"
 
 namespace {
 
-using coloc::nan_max;
+constexpr int kWarps = 4;   // samples a CTA, a warp each
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
+// a sample's staged outputs: basis, md, coef, npoly
+constexpr int kBasis = 0, kMd = 36, kCoef = 836, kNpoly = 876, kOut = 887;
+// output e of sample w sits at stage[e * kStride + w]; an odd stride puts
+// the consecutive rows a warp's lanes write on distinct banks
+constexpr int kStride = kWarps + 1;
 
-constexpr int kThreads = 64;
+__device__ __forceinline__ float& at(float* st, int e) { return st[e * kStride]; }
 
-__global__ void __launch_bounds__(kThreads)
-front_kernel(const float* __restrict__ xs, float* __restrict__ basis,
-             float* __restrict__ md, float* __restrict__ coef,
-             float* __restrict__ npoly, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// md_rows' out[20 a + j]: row 10 + 10 a + row of MD, column j, in the stage
+struct MdRows {
+  float* st;
+  int row;
+  __device__ __forceinline__ float& operator[](int i) const {
+    return at(st, kMd + 20 * (10 + 10 * (i / 20) + row) + i % 20);
+  }
+};
+
+// out = x * y, polynomials ascending, the twin's pmul order
+template <int NX, int NY>
+__device__ __forceinline__ void pmul(const float (&x)[NX], const float (&y)[NY],
+                                     float (&out)[NX + NY - 1]) {
+#pragma unroll
+  for (int i = 0; i < NX + NY - 1; ++i) out[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NY; ++j) out[i + j] = out[i + j] + x[i] * y[j];
+}
+
+// sum_i w[i] x[i] for a one-hot (or all-zero) w, as a tree: the twin sums
+// in row order, and both are exact in any order (x[p] itself, or a zero
+// that is -0 only when every term is, or NaN when any term is), so the
+// tree gives the twin's bits in a third of the chain
+__device__ __forceinline__ float onehot_sum(const float (&w)[10], const float (&x)[10]) {
+  float t[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) t[i] = w[i] * x[i];
+  return (((t[0] + t[1]) + (t[2] + t[3])) + ((t[4] + t[5]) + (t[6] + t[7]))) + (t[8] + t[9]);
+}
+
+// One sample, the whole warp; its outputs into st (stage + warp).
+__device__ __forceinline__ void sample_front(const float* __restrict__ xs, int B, int b,
+                                             int lane, float* st, float (*eet)[10],
+                                             float* xch) {
   float u1[5], v1[5], u2[5], v2[5];
+#pragma unroll
   for (int i = 0; i < 5; ++i) {
-    u1[i] = xs[i * B + b];
-    v1[i] = xs[(5 + i) * B + b];
-    u2[i] = xs[(10 + i) * B + b];
-    v2[i] = xs[(15 + i) * B + b];
+    u1[i] = __ldg(xs + i * B + b);
+    v1[i] = __ldg(xs + (5 + i) * B + b);
+    u2[i] = __ldg(xs + (10 + i) * B + b);
+    v2[i] = __ldg(xs + (15 + i) * B + b);
   }
 
-  // ---- complete QR of A^T by Householder reflections ----
+  // ---- complete QR of A^T by Householder reflections (every lane) ----
   float cols[5][9];
+#pragma unroll
   for (int i = 0; i < 5; ++i) {
     cols[i][0] = u2[i] * u1[i];
     cols[i][1] = u2[i] * v1[i];
@@ -63,102 +110,181 @@ front_kernel(const float* __restrict__ xs, float* __restrict__ basis,
     cols[i][8] = 1.0f;
   }
   float rv[5][9], rbeta[5];
+#pragma unroll
   for (int k = 0; k < 5; ++k) {
-    const float* x = cols[k];
     float sigma = 0.0f;
-    for (int i = k; i < 9; ++i) sigma = sigma + x[i] * x[i];
-    const float sgn = x[k] >= 0.0f ? 1.0f : -1.0f;
+#pragma unroll
+    for (int i = k; i < 9; ++i) sigma = sigma + cols[k][i] * cols[k][i];
+    const float xk = cols[k][k];
+    const float sgn = xk >= 0.0f ? 1.0f : -1.0f;
     const float alpha = -sgn * sqrtf(sigma + 1e-30f);
-    for (int i = 0; i < 9; ++i) rv[k][i] = i < k ? 0.0f : (i == k ? x[k] - alpha : x[i]);
-    const float beta = 2.0f / (2.0f * (sigma - x[k] * alpha) + 1e-30f);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) rv[k][i] = i < k ? 0.0f : (i == k ? xk - alpha : cols[k][i]);
+    const float beta = 2.0f / (2.0f * (sigma - xk * alpha) + 1e-30f);
     rbeta[k] = beta;
+#pragma unroll
     for (int j = k + 1; j < 5; ++j) {
       float c = 0.0f;
+#pragma unroll
       for (int i = k; i < 9; ++i) c = c + rv[k][i] * cols[j][i];
       const float bc = beta * c;
+#pragma unroll
       for (int i = 0; i < 9; ++i) cols[j][i] = cols[j][i] - bc * rv[k][i];
     }
   }
-  float nb[4][9];
-  for (int j = 5; j < 9; ++j) {
-    float* q = nb[j - 5];
-    for (int i = 0; i < 9; ++i) q[i] = i == j ? 1.0f : 0.0f;
+  // null vector lane & 3: H1 ... H5 e_{5 + (lane & 3)}
+  {
+    const int jn = 5 + (lane & 3);
+    float q[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) q[i] = i == jn ? 1.0f : 0.0f;
+#pragma unroll
     for (int k = 4; k >= 0; --k) {
       float c = 0.0f;
+#pragma unroll
       for (int i = k; i < 9; ++i) c = c + rv[k][i] * q[i];
       const float bc = rbeta[k] * c;
+#pragma unroll
       for (int i = 0; i < 9; ++i) q[i] = q[i] - bc * rv[k][i];
     }
+    if (lane < 4) {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) at(st, kBasis + 9 * lane + i) = q[i];
+    }
   }
-  for (int v = 0; v < 4; ++v)
-    for (int i = 0; i < 9; ++i) basis[(v * 9 + i) * B + b] = nb[v][i];
+  __syncwarp();
 
-  // ---- constraint matrix and MD ----
-  float M[200];
-  coloc_fivept::constraint_rows(nb[0], nb[1], nb[2], nb[3], M);
-  for (int e = 0; e < 200; ++e) md[e * B + b] = M[e];
-  for (int a = 0; a < 3; ++a)
-    for (int j = 0; j < 20; ++j) {
-      const int k = coloc_fivept::kDiffK[a][j];
-      const float val = coloc_fivept::kDiffVal[a][j];
-      for (int r = 0; r < 10; ++r) {
-        float acc = 0.0f;
-        if (k >= 0) acc = acc + val * M[r * 20 + k];
-        md[((10 + 10 * a + r) * 20 + j) * B + b] = acc;
+  // ---- constraint matrix: lane 3 r + c -> row 1 + 3 r + c, lanes 9-11 -> row 0 ----
+  // basis v at (r, k) is at(st, kBasis + 9 v + 3 r + k)
+  float m[20];
+  const int r = lane / 3, c = lane - 3 * (lane / 3);
+  if (lane < 9) {
+    float ea[4][3], ec[4][3], e10[10];
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        ea[v][k] = at(st, kBasis + 9 * v + 3 * r + k);
+        ec[v][k] = at(st, kBasis + 9 * v + 3 * c + k);
       }
-    }
-
-  // ---- Gauss-Jordan on M + 1e-10 [I | 0] ----
-  float* Mw = M;  // reduced in place
-  for (int r = 0; r < 10; ++r) Mw[r * 20 + r] = Mw[r * 20 + r] + 1e-10f;
-  for (int r = 0; r < 10; ++r)
-    for (int c = 0; c < 20; ++c)
-      if (c != r) Mw[r * 20 + c] = Mw[r * 20 + c] + 0.0f;
-  for (int k = 0; k < 10; ++k) {
-    float cand[10];
-    float mx = 0.0f;
-    for (int r = 0; r < 10; ++r) {
-      cand[r] = r >= k ? fabsf(Mw[r * 20 + k]) : -1.0f;
-      mx = r == 0 ? cand[0] : nan_max(mx, cand[r]);
-    }
-    int p = 10;
-    for (int r = 9; r >= 0; --r)
-      if (cand[r] == mx) p = r;
-    float onep[10], onek[10];
-    for (int r = 0; r < 10; ++r) {
-      onep[r] = r == p ? 1.0f : 0.0f;
-      onek[r] = r == k ? 1.0f : 0.0f;
-    }
-    float rp[20], rk[20];
-    for (int c = 0; c < 20; ++c) {
-      float s = onep[0] * Mw[c];
-      for (int r = 1; r < 10; ++r) s = s + onep[r] * Mw[r * 20 + c];
-      rp[c] = s;
-      rk[c] = Mw[k * 20 + c];
-    }
-    for (int r = 0; r < 10; ++r)
-      for (int c = 0; c < 20; ++c)
-        Mw[r * 20 + c] = (Mw[r * 20 + c] + onek[r] * (rp[c] - rk[c]))
-                         + onep[r] * (rk[c] - rp[c]);
-    float piv = rp[k] + onep[k] * (rk[k] - rp[k]);
-    piv = fabsf(piv) < 1e-20f ? 1e-20f : piv;
-    float rowk[20];
-    for (int c = 0; c < 20; ++c) rowk[c] = Mw[k * 20 + c] / piv;
-    for (int r = 0; r < 10; ++r) {
-      const float f = Mw[r * 20 + k];
-      for (int c = 0; c < 20; ++c) Mw[r * 20 + c] = Mw[r * 20 + c] - f * rowk[c];
-    }
-    for (int r = 0; r < 10; ++r)
-      for (int c = 0; c < 20; ++c) Mw[r * 20 + c] = Mw[r * 20 + c] + onek[r] * rowk[c];
+    coloc_fivept::eet_entry(ea, ec, e10);
+#pragma unroll
+    for (int i = 0; i < 10; ++i) eet[lane][i] = e10[i];
+  } else if (lane < 12) {
+    // cofactor term j = lane - 9 of det E: E[0][j] (E[1][a] E[2][b] - E[1][b] E[2][a])
+    const int j = lane - 9, a = j == 0 ? 1 : 0, b = j == 2 ? 1 : 2;
+    const int rc[5] = {j, 3 + a, 6 + b, 3 + b, 6 + a};   // 3 row + column
+    float d[5][4], t20[20];
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) d[i][v] = at(st, kBasis + 9 * v + rc[i]);
+    coloc_fivept::det_term(d, t20);
+#pragma unroll
+    for (int i = 0; i < 20; ++i) xch[20 * j + i] = t20[i];
   }
+  __syncwarp();
+  if (lane < 9) {
+    float er[3][10], dg[3][10], ec[4][3], e[4];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int i = 0; i < 10; ++i) {
+        er[k][i] = eet[3 * r + k][i];
+        dg[k][i] = eet[4 * k][i];
+      }
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) ec[v][k] = at(st, kBasis + 9 * v + 3 * k + c);
+      e[v] = at(st, kBasis + 9 * v + 3 * r + c);
+    }
+    coloc_fivept::row_entry(er, dg, ec, e, m);
+  } else if (lane == 9) {
+    float t[3][20];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int i = 0; i < 20; ++i) t[j][i] = xch[20 * j + i];
+    coloc_fivept::det_combine(t, m);
+  }
+  if (lane < 10) {
+    const int row = lane < 9 ? lane + 1 : 0;
+#pragma unroll
+    for (int j = 0; j < 20; ++j) at(st, kMd + 20 * row + j) = m[j];
+    coloc_fivept::md_rows(m, MdRows{st, row});
+  }
+  __syncwarp();
+
+  // ---- Gauss-Jordan on M + 1e-10 [I | 0]: lane cl holds column cl ----
+  // (lanes 20-31 repeat column 19 and store nothing)
+  const int cl = lane < 20 ? lane : 19;
+  float col[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) col[i] = at(st, kMd + 20 * i + cl) + (i == cl ? 1e-10f : 0.0f);
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    float ck[10];   // column k before the step
+#pragma unroll
+    for (int i = 0; i < 10; ++i) ck[i] = __shfl_sync(kFull, col[i], k);
+    // pivot row p: the first row >= k at the largest |column k|; 10 when a
+    // candidate is NaN (torch's amax propagates it, and no row equals NaN).
+    // The candidates are -1 or |x|, whose bit patterns order as integers
+    // as the floats do, NaN above +inf: an integer maximum, by a tree,
+    // gives the twin's value.
+    float cand[10];
+    int cb[10];
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      cand[i] = i >= k ? fabsf(ck[i]) : -1.0f;
+      cb[i] = __float_as_int(cand[i]);
+    }
+    const float mx = __int_as_float(max(max(max(cb[0], cb[1]), max(cb[2], cb[3])),
+                                        max(max(max(cb[4], cb[5]), max(cb[6], cb[7])),
+                                            max(cb[8], cb[9]))));
+    unsigned hit = 0;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) hit |= static_cast<unsigned>(cand[i] == mx) << i;
+    const int p = hit ? __ffs(hit) - 1 : 10;
+    float onep[10];
+#pragma unroll
+    for (int i = 0; i < 10; ++i) onep[i] = i == p ? 1.0f : 0.0f;
+    // column k after the row swap (f), and the pivot
+    const float rpk = onehot_sum(onep, ck);
+    const float rkk = ck[k];
+    float f[10];
+#pragma unroll
+    for (int i = 0; i < 10; ++i)
+      f[i] = (ck[i] + (i == k ? 1.0f : 0.0f) * (rpk - rkk)) + onep[i] * (rkk - rpk);
+    float piv = rpk + onep[k] * (rkk - rpk);
+    piv = fabsf(piv) < 1e-20f ? 1e-20f : piv;
+    // this lane's column: the swap, then the elimination
+    const float rp = onehot_sum(onep, col);
+    const float rk = col[k];
+#pragma unroll
+    for (int i = 0; i < 10; ++i)
+      col[i] = (col[i] + (i == k ? 1.0f : 0.0f) * (rp - rk)) + onep[i] * (rk - rp);
+    const float rowk = col[k] / piv;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) col[i] = col[i] - f[i] * rowk;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) col[i] = col[i] + (i == k ? 1.0f : 0.0f) * rowk;
+  }
+  if (lane >= 10 && lane < 20) {
+#pragma unroll
+    for (int i = 4; i < 10; ++i) xch[10 * (i - 4) + lane - 10] = col[i];
+  }
+  __syncwarp();
+  if (lane != 0) return;
 
   // ---- Nistér's reduced polynomials (ascending in z) ----
   // row i of the tail: P = (r2, r1, r0), Q = (r5, r4, r3), R = (r9, r8, r7, r6)
   // with r = Mw[i, 10:20]; <k> = eq(a) - z eq(b)
   float P[3][4], Q[3][4], R[3][5];
+#pragma unroll
   for (int g = 0; g < 3; ++g) {
-    const float* ra = Mw + (4 + 2 * g) * 20 + 10;
-    const float* rb = Mw + (5 + 2 * g) * 20 + 10;
+    const float* ra = xch + 20 * g;        // row 4 + 2 g, columns 10-19
+    const float* rb = xch + 20 * g + 10;   // row 5 + 2 g
     P[g][0] = ra[2];
     P[g][1] = ra[1] - rb[2];
     P[g][2] = ra[0] - rb[1];
@@ -173,34 +299,69 @@ front_kernel(const float* __restrict__ xs, float* __restrict__ basis,
     R[g][3] = ra[6] - rb[7];
     R[g][4] = 0.0f - rb[6];
   }
+#pragma unroll
   for (int g = 0; g < 3; ++g) {
-    for (int i = 0; i < 4; ++i) coef[(8 * g + i) * B + b] = P[g][i];
-    for (int i = 0; i < 4; ++i) coef[(8 * g + 4 + i) * B + b] = Q[g][i];
-    for (int i = 0; i < 5; ++i) coef[(24 + 5 * g + i) * B + b] = R[g][i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) at(st, kCoef + 8 * g + i) = P[g][i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) at(st, kCoef + 8 * g + 4 + i) = Q[g][i];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) at(st, kCoef + 24 + 5 * g + i) = R[g][i];
   }
-  coef[39 * B + b] = 0.0f;
+  at(st, kCoef + 39) = 0.0f;
 
   // det = Pk (Ql Rm - Qm Rl) - Qk (Pl Rm - Pm Rl) + Rk (Pl Qm - Pm Ql)
-  float a8[8], b8[8], m01[8], m11[8], m21[8];
-  auto pmul = [](const float* x, int nx, const float* y, int ny, float* out) {
-    for (int i = 0; i < nx + ny - 1; ++i) out[i] = 0.0f;
-    for (int i = 0; i < nx; ++i)
-      for (int j = 0; j < ny; ++j) out[i + j] = out[i + j] + x[i] * y[j];
-  };
-  pmul(Q[1], 4, R[2], 5, a8);
-  pmul(Q[2], 4, R[1], 5, b8);
+  float a8[8], b8[8], m01[8], m11[8], a7[7], b7[7], m21[7];
+  pmul(Q[1], R[2], a8);
+  pmul(Q[2], R[1], b8);
+#pragma unroll
   for (int i = 0; i < 8; ++i) m01[i] = a8[i] - b8[i];
-  pmul(P[1], 4, R[2], 5, a8);
-  pmul(P[2], 4, R[1], 5, b8);
+  pmul(P[1], R[2], a8);
+  pmul(P[2], R[1], b8);
+#pragma unroll
   for (int i = 0; i < 8; ++i) m11[i] = a8[i] - b8[i];
-  pmul(P[1], 4, Q[2], 4, a8);
-  pmul(P[2], 4, Q[1], 4, b8);
-  for (int i = 0; i < 7; ++i) m21[i] = a8[i] - b8[i];
+  pmul(P[1], Q[2], a7);
+  pmul(P[2], Q[1], b7);
+#pragma unroll
+  for (int i = 0; i < 7; ++i) m21[i] = a7[i] - b7[i];
   float d1[11], d2[11], d3[11];
-  pmul(P[0], 4, m01, 8, d1);
-  pmul(Q[0], 4, m11, 8, d2);
-  pmul(R[0], 5, m21, 7, d3);
-  for (int i = 0; i < 11; ++i) npoly[i * B + b] = (d1[i] - d2[i]) + d3[i];
+  pmul(P[0], m01, d1);
+  pmul(Q[0], m11, d2);
+  pmul(R[0], m21, d3);
+#pragma unroll
+  for (int i = 0; i < 11; ++i) at(st, kNpoly + i) = (d1[i] - d2[i]) + d3[i];
+}
+
+__global__ void __launch_bounds__(kThreads)
+front_kernel(const float* __restrict__ xs, float* __restrict__ basis,
+             float* __restrict__ md, float* __restrict__ coef,
+             float* __restrict__ npoly, int B) {
+  __shared__ float stage[kOut * kStride];
+  __shared__ float eet[kWarps][9][10];    // (E E^T)[r][c] at [3 r + c]
+  // det E's three cofactor terms, later Gauss-Jordan's rows 4-9 of columns 10-19
+  __shared__ float xch[kWarps][60];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b0 = blockIdx.x * kWarps;
+  // a warp past B repeats sample B - 1 and stores nothing: every warp runs
+  // the sample code, so the compiler sees its shuffles converged
+  sample_front(xs, B, min(b0 + w, B - 1), lane, stage + w, eet[w], xch[w]);
+  __syncthreads();
+  // each output row as a run of the CTA's consecutive samples
+  const int n = min(kWarps, B - b0);
+  for (int i = threadIdx.x; i < kOut * kWarps; i += kThreads) {
+    const int e = i / kWarps, s = i - kWarps * (i / kWarps);
+    if (s >= n) continue;
+    const float v = stage[e * kStride + s];
+    const int b = b0 + s;
+    if (e < kMd)
+      basis[e * B + b] = v;
+    else if (e < kCoef)
+      md[(e - kMd) * B + b] = v;
+    else if (e < kNpoly)
+      coef[(e - kCoef) * B + b] = v;
+    else
+      npoly[(e - kNpoly) * B + b] = v;
+  }
 }
 
 }  // namespace
@@ -212,7 +373,7 @@ extern "C" int coloc_fivept_front(const void* xs, void* basis, void* md, void* c
   cudaError_t err = coloc::set_device(device);
   if (err != cudaSuccess) return err;
   if (B <= 0) return cudaSuccess;
-  front_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+  front_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xs), static_cast<float*>(basis), static_cast<float*>(md),
       static_cast<float*>(coef), static_cast<float*>(npoly), B);

@@ -184,3 +184,39 @@ def consistent_mapdb(feats, K: np.ndarray, num_landmarks: int,
     desc = np.concatenate([np.asarray(feats.desc, np.uint32),
                            _random_desc(rng, pad)])[:L]
     return MapDBArrays(X=X.astype(np.float32), desc=desc, valid=np.ones(L, bool))
+
+
+def five_point_edge_samples() -> Tuple[np.ndarray, np.ndarray]:
+    """Minimal five-point samples at the solver's numeric edges, x1 and x2
+    (4, 5, 2) float32 normalised coordinates: two identical points (a rank-4
+    design matrix, where the Householder steps' 1e-30 guards act); five
+    collinear points in both views; every point at the origin (Gauss-Jordan
+    meets its 1e-20 pivot floor three times); a NaN coordinate (NaN through
+    every output)."""
+    rng = np.random.default_rng(0)
+    P = np.c_[rng.uniform(-3, 3, (5, 2)), rng.uniform(5, 15, (5, 1))]
+    Pc = P - [0.3, 0.05, 0.0]
+    a, b = P[:, :2] / P[:, 2:], Pc[:, :2] / Pc[:, 2:]
+    dup1, dup2 = a.copy(), b.copy()
+    dup1[1], dup2[1] = dup1[0], dup2[0]
+    t = np.linspace(-1.0, 1.0, 5)
+    nan1 = a.copy()
+    nan1[2, 0] = np.nan
+    x1 = np.stack([dup1, np.c_[t, 0.5 * t + 0.1], np.zeros((5, 2)), nan1])
+    x2 = np.stack([dup2, np.c_[t + 0.05, 0.5 * t + 0.12], np.zeros((5, 2)), b])
+    return x1.astype(np.float32), x2.astype(np.float32)
+
+
+def dk_edge_polys() -> np.ndarray:
+    """Degree-10 polynomials at the Durand-Kerner stage's edges, ascending
+    coefficients (11, 4) float32 as the five-point front hands them on: a
+    double root at 1; a leading coefficient of 1e-14, under
+    dk_normalise's 1e-12 floor; an infinite and a NaN coefficient (no real
+    root)."""
+    rng = np.random.default_rng(1)
+    double = np.poly([1.0, 1.0, -2.0, 3.0, 0.5, -0.7, 1.5, -1.2, 2.5, -3.0])[::-1]
+    tiny = rng.normal(size=11)
+    tiny[10] = 1e-14
+    inf_row, nan_row = rng.normal(size=11), rng.normal(size=11)
+    inf_row[4], nan_row[7] = np.inf, np.nan
+    return np.stack([double, tiny, inf_row, nan_row], axis=1).astype(np.float32)

@@ -1,0 +1,166 @@
+"""Where the time of the port's five-point front (B6) and Durand-Kerner
+(B7) kernels goes, on one CUDA card.
+
+    python scripts/prof_torch_fivept_split.py
+
+Builds copies of coloc_tpu_torch/csrc/fivept_front.cu and fivept_dk.cu with
+one part cut out or changed, and times each against the source as it is,
+in turns (source, copy, copy, source), by torch.profiler's device time, at
+the solver's B = 256 samples (chip_smoke.py's: two views of a random
+scene, half of the samples on a plane) and at B = 2048:
+
+  B6:
+    - "no Gauss-Jordan": the 10 elimination steps cut (the tail is read
+      from the unreduced columns);
+    - "no polynomials": lane 0's Nistér polynomials and determinant cut;
+    - "no constraint expansion": the generated eet_entry / row_entry /
+      det_term / det_combine calls replaced by copies of their inputs.
+  B7:
+    - "no iterations": the 24 Durand-Kerner iterations cut (what is left:
+      the launch, the loads, the seeds, Newton and the stores);
+    - "12 iterations": half of them, for the cost of one;
+    - "divisions as products": the update's two divisions by |d|^2 + 1e-20
+      made multiplications;
+    - "spare lanes on their own": lanes 30-31 run as a fourth group of
+      their own instead of repeating lanes 20-21 (they store nothing and
+      no live lane reads them, so the output is still checked against the
+      source's).
+
+Every copy but "spare lanes on their own" computes a wrong result. Prints
+the card's name and power limit beside the numbers.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from coloc_tpu_torch.geometry import fivept  # noqa: E402
+from coloc_tpu_torch.ops import _build, dispatch  # noqa: E402
+
+CALLS = 20
+
+FRONT_VARIANTS = {
+    "no Gauss-Jordan": [("  for (int k = 0; k < 10; ++k) {", "  for (int k = 0; k < 0; ++k) {")],
+    "no polynomials": [("  if (lane != 0) return;", "  return;")],
+    "no constraint expansion": [
+        ("coloc_fivept::eet_entry(ea, ec, e10);",
+         "_Pragma(\"unroll\") for (int i = 0; i < 10; ++i) "
+         "e10[i] = ea[i % 4][i % 3] + ec[i % 4][i % 3];"),
+        ("coloc_fivept::det_term(d, t20);",
+         "_Pragma(\"unroll\") for (int i = 0; i < 20; ++i) t20[i] = d[i % 5][i % 4];"),
+        ("coloc_fivept::row_entry(er, dg, ec, e, m);",
+         "_Pragma(\"unroll\") for (int i = 0; i < 20; ++i) "
+         "m[i] = er[i % 3][i % 10] + dg[i % 3][i % 10] + e[i % 4];"),
+        ("coloc_fivept::det_combine(t, m);",
+         "_Pragma(\"unroll\") for (int i = 0; i < 20; ++i) m[i] = t[i % 3][i];")],
+}
+DK_VARIANTS = {
+    "no iterations": [("constexpr int kIters = 24;", "constexpr int kIters = 0;")],
+    "12 iterations": [("constexpr int kIters = 24;", "constexpr int kIters = 12;")],
+    "divisions as products": [
+        ("zr - (pr * dr + pi * di) / den", "zr - (pr * dr + pi * di) * den"),
+        ("zi - (pi * dr - pr * di) / den", "zi - (pi * dr - pr * di) * den")],
+    "spare lanes on their own": [
+        ("const int g = min(lane / 10, kGroups - 1), k = lane < 30 ? lane - 10 * g : lane - 30;",
+         "const int g = lane / 10, k = lane - 10 * g;")],
+}
+
+
+def build(name, edits, work):
+    """name.cu from the port's csrc with `edits` applied (fivept_front.cu
+    with the port's generated header), built by chip_smoke.build_parent ->
+    its C launcher."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise SystemExit(f"{name}.cu: the pattern to replace is not there once:\n{old}")
+        src = src.replace(old, new)
+    d = Path(tempfile.mkdtemp(prefix=f"{name}-", dir=work))
+    (d / f"{name}.cu").write_text(src)
+    header = "fivept_constraints.cuh"
+    (d / header).write_text((_build.CSRC / header).read_text())
+    return chip_smoke.build_parent(d, (name,))[name]
+
+
+def turns(tag, source, copy, kernel, card):
+    """Device ms of source and copy in turns (source, copy, copy, source)."""
+    ms = {"source": [], "copy": []}
+    for which, fn in (("source", source), ("copy", copy), ("copy", copy),
+                      ("source", source)):
+        ms[which].append(chip_smoke.device_ms(fn, kernel, CALLS))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    print(f"[{tag}] device {mean['copy']:.4f} ms; the source {mean['source']:.4f} ms "
+          f"(in turns)  ({card})")
+
+
+def samples(B, dev):
+    """chip_smoke.py's five-point samples -> xs (20, B) on dev."""
+    rng = np.random.default_rng(B)
+    P = np.c_[rng.uniform(-3, 3, (B * 5, 2)), rng.uniform(5, 15, (B * 5, 1))].reshape(B, 5, 3)
+    P[B // 2:, :, 2] = 8.0
+    Pc = P - [0.3, 0.05, 0.0]
+    x1 = torch.from_numpy((P[..., :2] / P[..., 2:]).astype(np.float32)).to(dev)
+    x2 = torch.from_numpy((Pc[..., :2] / Pc[..., 2:]).astype(np.float32)).to(dev)
+    return torch.cat([x1[:, :, 0], x1[:, :, 1], x2[:, :, 0], x2[:, :, 1]], dim=1).T.contiguous()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    print(card)
+    _build.load()
+    work = Path(tempfile.mkdtemp(prefix="coloc-split-"))
+    stream = dispatch.stream_handle(dev)
+    front = {tag: build("fivept_front", edits, work)
+             for tag, edits in FRONT_VARIANTS.items()}
+    dk = {tag: build("fivept_dk", edits, work) for tag, edits in DK_VARIANTS.items()}
+    for B in (256, 2048):
+        xs = samples(B, dev)
+        outs = [torch.empty(shape + (B,), device=dev)
+                for shape in ((36,), (40, 20), (40,), (11,))]
+        for tag, fn in front.items():
+            args = (xs.data_ptr(), *(o.data_ptr() for o in outs), B, dev.index, stream)
+
+            def copy(fn=fn, args=args):
+                if fn(*args) != 0:
+                    raise SystemExit(f"fivept_front {tag}: launch failed")
+            turns(f"fivept_front B={B}, {tag}", lambda: fivept._front_cuda(xs), copy,
+                  "front_kernel", card)
+        c, s = fivept.dk_normalise(fivept._front_cuda(xs)[3])
+        want = fivept._dk_cuda(c, s)
+        for tag, fn in dk.items():
+            got = (torch.empty((10, B), device=dev),
+                   torch.empty((10, B), dtype=torch.bool, device=dev))
+            args = (c.data_ptr(), s.data_ptr(), *(o.data_ptr() for o in got), B, dev.index,
+                    stream)
+
+            def copy(fn=fn, args=args):
+                if fn(*args) != 0:
+                    raise SystemExit(f"fivept_dk {tag}: launch failed")
+            if tag == "spare lanes on their own":
+                copy()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise SystemExit("fivept_dk with free spare lanes differs from the source")
+            turns(f"fivept_dk B={B}, {tag}", lambda: fivept._dk_cuda(c, s), copy, "dk_kernel",
+                  card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -296,10 +296,12 @@ def _fivept_stages(x1, x2):
     return xs, (basis, md, coef, npoly), (c, s), (md, coef, basis, seeds, is_real.repeat(3, 1))
 
 
-@pytest.mark.parametrize("B", [1, 37, 256])
+@pytest.mark.parametrize("B", [1, 37, 256, 1000])
 def test_fivept_kernels_equal_plain(dev, B):
     """B6, B7, B8 each against its plain twin on the same card inputs: the
-    kernels repeat the twins' arithmetic (-fmad=false), so bit-equal."""
+    kernels repeat the twins' arithmetic (-fmad=false), so bit-equal.
+    B = 1 and 37 leave B6's last CTA of 4 samples part empty, 1 and 1000
+    B7's last warp of 3 polynomials."""
     x1, x2 = _fivept_samples(B)
     xs, front_out, dk_in, polish_in = _fivept_stages(x1.to(dev), x2.to(dev))
     before = dispatch.launch_counts()
@@ -316,6 +318,47 @@ def test_fivept_kernels_equal_plain(dev, B):
     assert torch.equal(Es[valid], want[0][valid])
     after = dispatch.launch_counts()
     for name in ("fivept_front", "fivept_dk", "fivept_polish"):
+        assert after[name] == before[name] + 1
+
+
+def _same_bits(got, want):
+    """NaN where the twin has NaN, the same float32 bits elsewhere (so the
+    sign of a zero counts); masks equal."""
+    if not want.is_floating_point():
+        return torch.equal(got, want)
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+@pytest.mark.parametrize("lead", [0, 37])
+def test_fivept_kernels_planted_edges(dev, lead):
+    """B6 on io/synthetic.five_point_edge_samples (two identical points,
+    five collinear, all at the origin: Gauss-Jordan's 1e-20 pivot floor,
+    a NaN coordinate) and B7 on dk_edge_polys (a double root, a leading
+    coefficient under dk_normalise's 1e-12 floor, an infinite and a NaN
+    coefficient), alone and after `lead` ordinary samples, against their
+    twins: NaN where the twin has NaN, equal bits elsewhere."""
+    e1, e2 = synthetic.five_point_edge_samples()
+    x1, x2 = _fivept_samples(lead) if lead else (torch.zeros(0, 5, 2), torch.zeros(0, 5, 2))
+    x1 = torch.cat([x1, torch.from_numpy(e1)]).to(dev)
+    x2 = torch.cat([x2, torch.from_numpy(e2)]).to(dev)
+    xs, front_out, _, _ = _fivept_stages(x1, x2)
+    before = dispatch.launch_counts()
+    got = fivept.front(xs)
+    torch.cuda.synchronize()
+    for g, w in zip(got, front_out):
+        assert _same_bits(g, w)
+    npoly = torch.cat([front_out[3][:, :lead], torch.from_numpy(synthetic.dk_edge_polys()).to(dev)],
+                      dim=1)
+    c, s = fivept.dk_normalise(npoly)
+    roots, is_real = fivept.dk_roots(c, s)
+    want = fivept.dk_roots_plain(c, s)
+    torch.cuda.synchronize()
+    assert _same_bits(roots, want[0]) and torch.equal(is_real, want[1])
+    assert bool(torch.isnan(want[0][:, -2:]).all()) and not bool(want[1][:, -2:].any())
+    after = dispatch.launch_counts()
+    for name in ("fivept_front", "fivept_dk"):
         assert after[name] == before[name] + 1
 
 

@@ -11,6 +11,8 @@ are held by what they are for (the solutions captured) and by their
 distance to a float64 evaluation, with each tolerance's reason beside it.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +44,7 @@ from coloc_tpu_torch.geometry import essential as tess
 from coloc_tpu_torch.geometry import fivept as tfp
 from coloc_tpu_torch.geometry import se3 as tse3
 from coloc_tpu_torch.geometry import triangulation as ttri
+from coloc_tpu_torch.io import synthetic as tsyn
 from coloc_tpu_torch.ops import ransac_rank as trank
 from coloc_tpu_torch.types import Pose
 
@@ -95,6 +98,100 @@ def test_constraint_header_is_generated():
     """csrc/fivept_constraints.cuh is the generator's output for the twin's
     _constraint_rows: the kernel expands in the twin's order."""
     assert gen_fivept_constraints.render() == gen_fivept_constraints.HEADER.read_text()
+
+
+def _header_functions():
+    """The generated header's device functions: name -> statement lines."""
+    text = gen_fivept_constraints.HEADER.read_text()
+    return {m.group(1): m.group(2).splitlines()
+            for m in re.finditer(r"void (\w+)\(.*?\) \{\n(.*?)\n\}", text, re.S)}
+
+
+_ARITH = {"+": np.add, "-": np.subtract, "*": np.multiply}
+
+
+def _run_header(lines, **inputs):
+    """One generated function's statements, each run as one float32 IEEE
+    operation on (N,) numpy arrays, as the kernel runs them (-fmad=false).
+    inputs: the function's arrays as nested lists. -> its out[] values."""
+    env, out = {}, {}
+
+    def val(tok):
+        if tok in env:
+            return env[tok]
+        if tok.endswith("f") and not tok[0].isalpha():
+            return np.float32(float(tok[:-1]))
+        name, *idx = re.findall(r"\w+", tok)
+        v = inputs[name]
+        for i in idx:
+            v = v[int(i)]
+        return v
+
+    for line in lines:
+        m = re.fullmatch(r"\s*const float (t\d+) = (.+);", line)
+        if m:
+            parts = m.group(2).split(" ")
+            env[m.group(1)] = (np.negative(val(parts[0][1:])) if len(parts) == 1 else
+                               _ARITH[parts[1]](val(parts[0]), val(parts[2]), dtype=np.float32))
+            continue
+        i, tok = re.fullmatch(r"\s*out\[(\d+)\] = (\S+);", line).groups()
+        out[int(i)] = val(tok)
+    return [out[i] for i in range(len(out))]
+
+
+def _same_bits(got, want):
+    """Equal NaN positions, and equal float32 bits elsewhere (signed zeros
+    count)."""
+    got, want = np.ascontiguousarray(got, np.float32), np.ascontiguousarray(want, np.float32)
+    nan = np.isnan(want)
+    return (np.array_equal(np.isnan(got), nan)
+            and np.array_equal(got[~nan].view(np.int32), want[~nan].view(np.int32)))
+
+
+@pytest.mark.parametrize("case", ["ordinary", "edges"])
+def test_lane_split_constraints_equal_front_plain(case):
+    """B6 spreads the constraint expansion over a warp's lanes: lane 3 r + c
+    runs the header's eet_entry, then row_entry on (E E^T)[r][k] and the
+    diagonal gathered from the other lanes; lanes 9-11 run det_term, one
+    cofactor term of det E each, and lane 9 det_combine; each row's lane
+    runs md_rows. Run statement by statement in numpy float32 on the
+    twin's null bases, that split gives front_plain's M and MD bit for bit,
+    so it keeps the twin's order of operations. ordinary: B samples,
+    half planar; edges: io/synthetic.five_point_edge_samples (repeated and
+    collinear points, all-zero coordinates, a NaN)."""
+    if case == "ordinary":
+        x1, x2 = _samples(seed=2)
+    else:
+        x1, x2 = tsyn.five_point_edge_samples()
+    basis, md, _, _ = tfp.front_plain(_t(_pack(x1, x2).T))
+    nb = basis.numpy().reshape(4, 9, -1)
+    fns = _header_functions()
+
+    def rows_of(r):     # [v][k]: basis v at (r, k)
+        return [[nb[v][3 * r + k] for k in range(3)] for v in range(4)]
+
+    eet = {(r, c): _run_header(fns["eet_entry"], a=rows_of(r), c=rows_of(c))
+           for r in range(3) for c in range(3)}
+    # det E: cofactor term j on lane 9 + j, (a, b) = (1, 2), (0, 2), (0, 1)
+    terms = [_run_header(fns["det_term"], d=[[nb[v][3 * r + c] for v in range(4)]
+                                             for r, c in ((0, j), (1, a), (2, b), (1, b), (2, a))])
+             for j, (a, b) in enumerate(((1, 2), (0, 2), (0, 1)))]
+    M = [_run_header(fns["det_combine"], t=terms)]
+    for r in range(3):
+        for c in range(3):
+            M.append(_run_header(
+                fns["row_entry"], er=[eet[r, k] for k in range(3)],
+                dg=[eet[k, k] for k in range(3)],
+                ec=[[nb[v][3 * k + c] for k in range(3)] for v in range(4)],
+                e=[nb[v][3 * r + c] for v in range(4)]))
+    M = np.stack([np.stack(np.broadcast_arrays(*row)) for row in M])      # (10, 20, N)
+    MD = np.zeros((30, 20, M.shape[2]), np.float32)
+    for i in range(10):
+        d = np.stack(np.broadcast_arrays(*_run_header(fns["md_rows"], m=list(M[i]))))
+        for a in range(3):
+            MD[10 * a + i] = d[20 * a:20 * a + 20]
+    assert _same_bits(M, md.numpy()[:10])
+    assert _same_bits(MD, md.numpy()[10:])
 
 
 def test_constants_match_reference():
