@@ -23,17 +23,17 @@ matcher against a 262144-row bank. Phases:
                 edge shapes, B11 on the frame's two sampler calls and
                 at K=1 and NS=1, B9 and B12 on the planted edge inputs of
                 tests/rank_cases.py, B12 also at a bank with a partial
-                last group, B6 and B7 at B = 1, 37, 1000 and 2048 and on
-                io/synthetic's planted edges (NaN held by position), with
+                last group, B6, B7 and B8 at B = 1, 37, 201, 1000 and 2048
+                and on io/synthetic's planted edges (NaN held by position), with
                 wrapper and profiler device times, and with --parent DIR
                 (a directory holding the parent commit's k2nn.cu,
                 fast_nms.cu, p3p.cu, ransac_rank.cu, fed_octave.cu,
                 sample_raster.cu, epi_rank.cu, k2nn_group.cu,
-                fivept_front.cu with its fivept_constraints.cuh, and
-                fivept_dk.cu) the parent's kernels timed in turns with
-                these on the same inputs, B2, B10, B11 and B12 held bit
-                for bit against the parent's, and B6, B7 and B9 against
-                the parent's wherever the parent equals the twin
+                fivept_front.cu with its fivept_constraints.cuh,
+                fivept_dk.cu and fivept_polish.cu) the parent's kernels
+                timed in turns with these on the same inputs, B2, B10, B11
+                and B12 held bit for bit against the parent's, and B6-B9
+                against the parent's wherever the parent equals the twin
   4. slice    — FRAMES frames through match_with_map + localize_image on
                 random features, checked against the identity ground
                 truth, plus frame 0 through the plain CPU path with the
@@ -97,7 +97,8 @@ TWOSTAGE_PARTIAL_T = 100000     # 48 whole groups and one of 1696 rows
 HBM_BPS, FP32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 # the kernels --parent builds from the parent commit's sources
 PARENT_KERNELS = ("k2nn", "fast_nms", "p3p", "ransac_rank", "fed_octave",
-                  "sample_raster", "epi_rank", "k2nn_group", "fivept_front", "fivept_dk")
+                  "sample_raster", "epi_rank", "k2nn_group", "fivept_front", "fivept_dk",
+                  "fivept_polish")
 # B3 at the AKAZE frame's correspondence count (4e)
 AKAZE_RANK_M = 5000
 
@@ -514,13 +515,13 @@ def main(argv=None) -> int:
     sass = sass_scan(_build.library_path(_build._nvcc()), _build._nvcc())
     for fn, (ops, n_local) in sass.items():
         if ops or n_local or any(k in fn for k in ("p3p_kernel", "rank_kernel", "front_kernel",
-                                                   "dk_kernel")):
+                                                   "dk_kernel", "polish_kernel")):
             print(f"    SASS {fn}: MMA {', '.join(ops) or 'none'}; {n_local} local-memory "
                   f"loads and stores")
     for kern, tag in (("k2nn_mma_kernel", "B1"), ("k2nn_group_kernel", "B12")):
         check(any(ops for fn, (ops, _) in sass.items() if kern in fn),
               f"{tag}'s kernel shows no MMA instruction in its SASS")
-    for kern, tag in (("front_kernel", "B6"), ("dk_kernel", "B7")):
+    for kern, tag in (("front_kernel", "B6"), ("dk_kernel", "B7"), ("polish_kernel", "B8")):
         n_local = [n for fn, (_, n) in sass.items() if kern in fn]
         check(bool(n_local) and not any(n_local), f"{tag}'s kernel is missing from the SASS "
               f"or loads or stores local memory ({n_local})")
@@ -849,12 +850,14 @@ def main(argv=None) -> int:
     # B6-B8: 256 five-point samples of two views of a random scene, the
     # second half on a plane (the twin-solution regime of
     # tests/test_robust.py); each kernel against its twin on the same card
-    # inputs, bit for bit (the kernels repeat the twins' arithmetic with
-    # -fmad=false): NaN where the twin has NaN, equal float32 bits
-    # elsewhere. B6 and B7 also at the card test's B = 1, 37, 1000, at
-    # B = 2048 (timed), and on io/synthetic's planted edges, alone and
-    # after 37 ordinary samples; with --parent, held to the parent's
-    # kernels wherever the parent equals the twin
+    # inputs, bit for bit on every output (the kernels repeat the twins'
+    # arithmetic with -fmad=false): NaN where the twin has NaN, equal
+    # float32 bits elsewhere, B8's E of invalid seeds included. All three
+    # also at the card test's B = 1, 37, 201, 1000, at B = 2048 (timed), and on
+    # io/synthetic's planted edges, alone and after 37 ordinary samples,
+    # B8 also with planted seed rows and an all-zero sample
+    # (plant_polish_edges); with --parent, held to the parent's kernels
+    # wherever the parent equals the twin
     NB = cfg.ransac.num_hypotheses
     srng = np.random.default_rng(SEED)
 
@@ -911,6 +914,23 @@ def main(argv=None) -> int:
             return outs
         return new, old
 
+    def polish_pair(pol_c):
+        """This tree's B8 and, with --parent, the parent's on the same input."""
+        new = lambda: fivept._polish_cuda(*pol_c)  # noqa: E731
+        if "fivept_polish" not in parent:
+            return new, None
+        B_c = pol_c[0].shape[2]
+        outs = (torch.empty((B_c, 30, 9), device=dev),
+                torch.empty((B_c, 30), dtype=torch.bool, device=dev))
+        launch = (*(t.data_ptr() for t in pol_c), *(o.data_ptr() for o in outs), B_c,
+                  dev.index, dispatch.stream_handle(dev))
+
+        def old():
+            check(parent["fivept_polish"](*launch) == 0,
+                  "the parent's fivept_polish did not launch")
+            return outs
+        return new, old
+
     def check_twin(name, tag, got, want, old):
         """got (this tree's outputs, one launch) against the twin's, and with
         --parent against the parent's wherever the parent equals the twin."""
@@ -951,6 +971,23 @@ def main(argv=None) -> int:
         check_twin("fivept_dk", tag, got, (want[0], want[1]), dk_pair(c_, s_)[1])
         return c_, s_, want
 
+    def polish_inputs(fr, dk):
+        """B8's operands from the front's (basis, md, coef, npoly) and DK's
+        (roots, is_real), split as five_point_batch splits them."""
+        delta = 0.01 * (dk[0].abs() + 1.0)
+        seeds = torch.cat([dk[0], dk[0] + delta, dk[0] - delta]).contiguous()
+        return (fr[1], fr[2], fr[0], seeds, dk[1].repeat(3, 1).contiguous())
+
+    def check_polish(tag, pol_c):
+        before = dispatch.launch_counts()["fivept_polish"]
+        got = fivept.polish(*pol_c)
+        want = fivept.polish_plain(*pol_c)
+        torch.cuda.synchronize()
+        check(dispatch.launch_counts()["fivept_polish"] == before + 1,
+              f"fivept_polish {tag}: launches")
+        check_twin("fivept_polish", tag, got, want, polish_pair(pol_c)[1])
+        return want
+
     def front_bound(B_c):
         """xs in, basis, md, coef and npoly out; ~10 kFLOP a sample."""
         return bound(B_c * (20 + 887) * 4, B_c * 1e4, FP32_FLOPS)
@@ -959,27 +996,43 @@ def main(argv=None) -> int:
         """coef and scale in, roots and is_real out; ~25 kFLOP a polynomial."""
         return bound(B_c * (12 * 4 + 10 * 5), B_c * 2.5e4, FP32_FLOPS)
 
+    def polish_bound(B_c):
+        """md, coef, basis, seeds, svalid in, Es and valid out; ~10 kFLOP a
+        seed."""
+        return bound(B_c * (906 * 4 + 30 + 30 * 37), B_c * 30 * 1e4, FP32_FLOPS)
+
     s1_np, s2_np = fivept_samples(NB, srng)
     s1, s2 = torch.from_numpy(s1_np).to(dev), torch.from_numpy(s2_np).to(dev)
     xs = pack_xs(s1_np, s2_np)
     fr_p = check_front(f"B={NB}", xs)
     c, sc_, dk_p = check_dk(f"B={NB}", fr_p[3])
-    for B_t in (1, 37, 1000, 2048):
+    pol = polish_inputs(fr_p, dk_p)
+    check_polish(f"B={NB}", pol)
+    for B_t in (1, 37, 201, 1000, 2048):
         x1_t, x2_t = fivept_samples(B_t, np.random.default_rng(B_t))
         xs_t = pack_xs(x1_t, x2_t)
-        check_dk(f"B={B_t}", check_front(f"B={B_t}", xs_t)[3])
+        fr_t = check_front(f"B={B_t}", xs_t)
+        c_t, s_t, dk_t = check_dk(f"B={B_t}", fr_t[3])
+        pol_t = polish_inputs(fr_t, dk_t)
+        check_polish(f"B={B_t}", pol_t)
         if B_t == 2048:
-            xs_2048 = xs_t
-            c_2048, s_2048 = fivept.dk_normalise(fivept.front_plain(xs_t)[3])
+            xs_2048, c_2048, s_2048, pol_2048 = xs_t, c_t, s_t, pol_t
     e1, e2 = synthetic.five_point_edge_samples()
     o1, o2 = fivept_samples(37, np.random.default_rng(37))
-    check_front("planted edges (repeated, collinear, all-zero, NaN points)", pack_xs(e1, e2))
-    check_front("37 samples + the planted edges",
-                pack_xs(np.concatenate([o1, e1]), np.concatenate([o2, e2])))
+    fr_e = check_front("planted edges (repeated, collinear, all-zero, NaN points)",
+                       pack_xs(e1, e2))
+    check_polish("the front's planted edges",
+                 polish_inputs(fr_e, check_dk("the front's planted edges", fr_e[3])[2]))
+    fr_oe = check_front("37 samples + the planted edges",
+                        pack_xs(np.concatenate([o1, e1]), np.concatenate([o2, e2])))
     edge_polys = torch.from_numpy(synthetic.dk_edge_polys()).to(dev)
     check_dk("planted edges (double root, lead 1e-14, inf, NaN)", edge_polys)
-    check_dk("B=37 + the planted edges",
-             torch.cat([fivept.front_plain(pack_xs(o1, o2))[3], edge_polys], dim=1))
+    dk_oe = check_dk("B=37 + the planted edges",
+                     torch.cat([fr_oe[3][:, :37], edge_polys], dim=1))[2]
+    pol_e = polish_inputs(fr_oe, dk_oe)
+    check_polish("B=37 + the front's and DK's planted edges", pol_e)
+    check_polish("the same, planted seed rows (NaN, +-inf, +-1e30) and an all-zero sample",
+                 synthetic.plant_polish_edges(*(t.clone() for t in pol_e)))
     results["fivept_front"] = dict(
         max_abs_err=0.0, plain_ms=cuda_ms(lambda: fivept.front_plain(xs), 2, 10),
         library_ms=None, **timed_pair(f"fivept_front B={NB}", *front_pair(xs), "front_kernel",
@@ -998,26 +1051,18 @@ def main(argv=None) -> int:
         **timed_pair(f"fivept_dk B={NB}", *dk_pair(c, sc_), "dk_kernel", card, dk_bound(NB)),
         **dk_bound(NB))
     timed_pair("fivept_dk B=2048", *dk_pair(c_2048, s_2048), "dk_kernel", card, dk_bound(2048))
+    results["fivept_polish"] = dict(
+        max_abs_err=0.0, plain_ms=cuda_ms(lambda: fivept.polish_plain(*pol), 2, 10),
+        library_ms=None, **timed_pair(f"fivept_polish B={NB}", *polish_pair(pol),
+                                      "polish_kernel", card, polish_bound(NB)),
+        **polish_bound(NB))
+    timed_pair("fivept_polish B=2048", *polish_pair(pol_2048), "polish_kernel", card,
+               polish_bound(2048))
     print(f"[3 fivept] five_point_batch B={NB} (front, normalise, dk, seeds, polish): "
           f"wrapper {fmt_ms(cuda_ms(lambda: fivept.five_point_batch(s1, s2), 3, 20))}  ({card})")
-    delta = 0.01 * (dk_p[0].abs() + 1.0)
-    seeds = torch.cat([dk_p[0], dk_p[0] + delta, dk_p[0] - delta]).contiguous()
-    svalid = dk_p[1].repeat(3, 1).contiguous()
-    pol = (fr_p[1], fr_p[2], fr_p[0], seeds, svalid)
-    po_k = fivept._polish_cuda(*pol)
-    po_p = fivept.polish_plain(*pol)
-    torch.cuda.synchronize()
-    both = po_k[1] & po_p[1]
-    err = float((po_k[0] - po_p[0])[both].abs().max()) if bool(both.any()) else 0.0
-    check(torch.equal(po_k[1], po_p[1]) and torch.equal(po_k[0][both], po_p[0][both]),
-          f"fivept_polish differs from its plain twin (max |diff| {err})")
-    print(f"[3 fivept] B={NB}: front, dk, polish bit-equal to their twins; "
-          f"{int(dk_p[1].sum())} real roots, {int(po_k[1].sum())} valid E of {po_k[1].numel()}")
-    results["fivept_polish"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: fivept._polish_cuda(*pol)),
-        device_ms=device_ms(lambda: fivept._polish_cuda(*pol), "polish_kernel"),
-        plain_ms=cuda_ms(lambda: fivept.polish_plain(*pol), 2, 10), library_ms=None,
-        **bound(NB * (906 * 4 + 30 + 30 * 37), NB * 30 * 1e4, FP32_FLOPS))
+    valid_p = fivept.polish_plain(*pol)[1]
+    print(f"[3 fivept] B={NB}: {int(dk_p[1].sum())} real roots, {int(valid_p.sum())} valid E "
+          f"of {valid_p.numel()}")
 
     # B9: the 7680 candidates of those samples against 1024 correspondences
     # of two views of a random scene, a band of them invalid
@@ -1107,7 +1152,7 @@ def main(argv=None) -> int:
         library_ms=None, **timed_pair(f"epi_rank Hm={Hm} x M={Mc}", *epi_pair(eops),
                                       "epi_rank_kernel", card, epi_bound(eops)),
         **epi_bound(eops))
-    del fr_p, po_k, po_p, xs_2048
+    del fr_p, pol, xs_2048, pol_2048, pol_t, pol_e
 
     # B10: the bench frame's four octaves (B=1), each octave's input the
     # last sublevel of the one before halved, as build_scale_space_batch

@@ -220,3 +220,19 @@ def dk_edge_polys() -> np.ndarray:
     inf_row, nan_row = rng.normal(size=11), rng.normal(size=11)
     inf_row[4], nan_row[7] = np.inf, np.nan
     return np.stack([double, tiny, inf_row, nan_row], axis=1).astype(np.float32)
+
+
+def plant_polish_edges(md, coef, basis, seeds, svalid):
+    """The five-point polish's operands (md (40, 20, B), coef (40, B),
+    basis (36, B), seeds and svalid (30, B), B >= 2) with its numeric edges
+    planted in place: seed rows 0, 1, 5, 12 and 29 set to NaN, +inf, -inf,
+    1e30 and -1e30 in every sample and marked valid (row 29 is the seed that
+    a spare lane of the kernel repeats); sample 1's MD and coefficients all
+    zero, so both determinant floors (1e-20) act. -> the operands."""
+    for row, value in ((0, float("nan")), (1, float("inf")), (5, float("-inf")),
+                       (12, 1e30), (29, -1e30)):
+        seeds[row] = value
+        svalid[row] = True
+    md[:, :, 1] = 0.0
+    coef[:, 1] = 0.0
+    return md, coef, basis, seeds, svalid

@@ -1,13 +1,14 @@
-"""Where the time of the port's five-point front (B6) and Durand-Kerner
-(B7) kernels goes, on one CUDA card.
+"""Where the time of the port's five-point front (B6), Durand-Kerner (B7)
+and polish (B8) kernels goes, on one CUDA card.
 
     python scripts/prof_torch_fivept_split.py
 
-Builds copies of coloc_tpu_torch/csrc/fivept_front.cu and fivept_dk.cu with
-one part cut out or changed, and times each against the source as it is,
-in turns (source, copy, copy, source), by torch.profiler's device time, at
-the solver's B = 256 samples (chip_smoke.py's: two views of a random
-scene, half of the samples on a plane) and at B = 2048:
+Builds copies of coloc_tpu_torch/csrc/fivept_front.cu, fivept_dk.cu and
+fivept_polish.cu with one part cut out or changed, and times each against
+the source as it is, in turns (source, copy, copy, source), by
+torch.profiler's device time, at the solver's B = 256 samples
+(chip_smoke.py's: two views of a random scene, half of the samples on a
+plane) and at B = 2048:
 
   B6:
     - "no Gauss-Jordan": the 10 elimination steps cut (the tail is read
@@ -25,9 +26,25 @@ scene, half of the samples on a plane) and at B = 2048:
       their own instead of repeating lanes 20-21 (they store nothing and
       no live lane reads them, so the output is still checked against the
       source's).
+  B8 (on the front's and DK's outputs for those samples):
+    - "no Gauss-Newton steps": the 5 steps cut (staging, the 2x2 start,
+      the certificate, E and the stores are left);
+    - "no contraction": each lane's 2 x 5 row contractions replaced by one
+      product a row;
+    - "no gather and sums": the octet's sums (the quad's 20 shuffles and
+      three sums of 10 terms) replaced by three short sums of the lane's
+      vector;
+    - "no 2x2 start", "no certificate": x = y = z to start, and no
+      certificate;
+    - "staging, E and stores alone": the whole polish of a seed pair cut;
+    - "divisions as products": the steps' three IEEE divisions by det made
+      multiplications;
+    - "one sample a CTA": at every B, where the source takes two a CTA for
+      B = SMs + 1 .. 2 SMs (checked against the source's output).
 
-Every copy but "spare lanes on their own" computes a wrong result. Prints
-the card's name and power limit beside the numbers.
+Every copy but "spare lanes on their own" and "one sample a CTA"
+computes a wrong result. Prints the card's name and power limit beside
+the numbers.
 """
 
 from __future__ import annotations
@@ -74,6 +91,30 @@ DK_VARIANTS = {
         ("const int g = min(lane / 10, kGroups - 1), k = lane < 30 ? lane - 10 * g : lane - 30;",
          "const int g = lane / 10, k = lane - 10 * g;")],
 }
+POLISH_VARIANTS = {
+    "no Gauss-Newton steps": [("constexpr int kSteps = 5;", "constexpr int kSteps = 0;")],
+    "no contraction": [("for (int i = 0; i < 5; ++i) own[s][i] = contract(md[i], mono);",
+                        "for (int i = 0; i < 5; ++i) own[s][i] = md[i][0] * mono[i];")],
+    "no gather and sums": [
+        ("quad_sums(v, G, H, s0, s1, s2);",
+         "s0 = v[0] + v[1] + v[2] + v[3]; s1 = v[4] + v[5] + v[6]; s2 = v[7] + v[8] + v[9];")],
+    "no 2x2 start": [("  x = (AtA11 * Atb0 - AtA01 * Atb1) / det2;\n"
+                      "  y = (AtA00 * Atb1 - AtA01 * Atb0) / det2;", "  x = z;\n  y = z;")],
+    "no certificate": [("  return finite && (maxr < 1e-3f * scale);", "  return x > 0.0f;")],
+    "staging, E and stores alone": [
+        ("const bool conv = polish_pair(s_in[j], s_in[j] + kCoefWord, G, H, x, y, z);",
+         "x = y = z; const bool conv = z > 0.0f;")],
+    "divisions as products": [
+        ("    const float dx = (c00 * gx + c01 * gy + c02 * gz) / det;",
+         "    const float dx = (c00 * gx + c01 * gy + c02 * gz) * det;"),
+        ("                      + (Axz * Axy - Axx * Ayz) * gz) / det;",
+         "                      + (Axz * Axy - Axx * Ayz) * gz) * det;"),
+        ("                      + (Axx * Ayy - Axy * Axy) * gz) / det;",
+         "                      + (Axx * Ayy - Axy * Axy) * gz) * det;")],
+    "one sample a CTA": [("if (B > sms && B <= 2 * sms)", "if (false)")],
+}
+# copies whose output must equal the source's
+SAME_OUTPUT = ("spare lanes on their own", "one sample a CTA")
 
 
 def build(name, edits, work):
@@ -92,15 +133,31 @@ def build(name, edits, work):
     return chip_smoke.build_parent(d, (name,))[name]
 
 
+def launcher(tag, fn, args):
+    def copy():
+        if fn(*args) != 0:
+            raise SystemExit(f"{tag}: launch failed")
+    return copy
+
+
+def check_same(tag, copy, got, want):
+    """The copy's outputs equal the source's bit for bit (NaN included)."""
+    copy()
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t  # noqa: E731
+    if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)):
+        raise SystemExit(f"{tag} differs from the source")
+
+
 def turns(tag, source, copy, kernel, card):
     """Device ms of source and copy in turns (source, copy, copy, source)."""
     ms = {"source": [], "copy": []}
     for which, fn in (("source", source), ("copy", copy), ("copy", copy),
                       ("source", source)):
         ms[which].append(chip_smoke.device_ms(fn, kernel, CALLS))
-    mean = {k: sum(v) / len(v) for k, v in ms.items()}
-    print(f"[{tag}] device {mean['copy']:.4f} ms; the source {mean['source']:.4f} ms "
-          f"(in turns)  ({card})")
+    mean = {k: None if None in v else sum(v) / len(v) for k, v in ms.items()}
+    print(f"[{tag}] device {chip_smoke.fmt_ms(mean['copy'])}; the source "
+          f"{chip_smoke.fmt_ms(mean['source'])} (in turns)  ({card})")
 
 
 def samples(B, dev):
@@ -124,41 +181,50 @@ def main() -> int:
                           timeout=60).stdout.strip()
     print(card)
     _build.load()
+    # a first profiler session can miss the device's activity: spend it here
+    chip_smoke.device_ms(lambda: torch.ones(1, device=dev) + 1, "elementwise", 1)
     work = Path(tempfile.mkdtemp(prefix="coloc-split-"))
     stream = dispatch.stream_handle(dev)
     front = {tag: build("fivept_front", edits, work)
              for tag, edits in FRONT_VARIANTS.items()}
     dk = {tag: build("fivept_dk", edits, work) for tag, edits in DK_VARIANTS.items()}
+    polish = {tag: build("fivept_polish", edits, work)
+              for tag, edits in POLISH_VARIANTS.items()}
     for B in (256, 2048):
         xs = samples(B, dev)
         outs = [torch.empty(shape + (B,), device=dev)
                 for shape in ((36,), (40, 20), (40,), (11,))]
         for tag, fn in front.items():
             args = (xs.data_ptr(), *(o.data_ptr() for o in outs), B, dev.index, stream)
-
-            def copy(fn=fn, args=args):
-                if fn(*args) != 0:
-                    raise SystemExit(f"fivept_front {tag}: launch failed")
-            turns(f"fivept_front B={B}, {tag}", lambda: fivept._front_cuda(xs), copy,
-                  "front_kernel", card)
-        c, s = fivept.dk_normalise(fivept._front_cuda(xs)[3])
+            turns(f"fivept_front B={B}, {tag}", lambda: fivept._front_cuda(xs),
+                  launcher(f"fivept_front {tag}", fn, args), "front_kernel", card)
+        basis, md, coef, npoly = fivept._front_cuda(xs)
+        c, s = fivept.dk_normalise(npoly)
         want = fivept._dk_cuda(c, s)
         for tag, fn in dk.items():
             got = (torch.empty((10, B), device=dev),
                    torch.empty((10, B), dtype=torch.bool, device=dev))
             args = (c.data_ptr(), s.data_ptr(), *(o.data_ptr() for o in got), B, dev.index,
                     stream)
-
-            def copy(fn=fn, args=args):
-                if fn(*args) != 0:
-                    raise SystemExit(f"fivept_dk {tag}: launch failed")
-            if tag == "spare lanes on their own":
-                copy()
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    raise SystemExit("fivept_dk with free spare lanes differs from the source")
+            copy = launcher(f"fivept_dk {tag}", fn, args)
+            if tag in SAME_OUTPUT:
+                check_same(f"fivept_dk {tag}", copy, got, want)
             turns(f"fivept_dk B={B}, {tag}", lambda: fivept._dk_cuda(c, s), copy, "dk_kernel",
                   card)
+        delta = 0.01 * (want[0].abs() + 1.0)
+        pol = (md, coef, basis, torch.cat([want[0], want[0] + delta, want[0] - delta]),
+               want[1].repeat(3, 1).contiguous())
+        want = fivept._polish_cuda(*pol)
+        for tag, fn in polish.items():
+            got = (torch.empty((B, 30, 9), device=dev),
+                   torch.empty((B, 30), dtype=torch.bool, device=dev))
+            args = (*(t.data_ptr() for t in pol), *(o.data_ptr() for o in got), B, dev.index,
+                    stream)
+            copy = launcher(f"fivept_polish {tag}", fn, args)
+            if tag in SAME_OUTPUT:
+                check_same(f"fivept_polish {tag}", copy, got, want)
+            turns(f"fivept_polish B={B}, {tag}", lambda: fivept._polish_cuda(*pol), copy,
+                  "polish_kernel", card)
     return 0
 
 

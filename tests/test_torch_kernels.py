@@ -296,12 +296,14 @@ def _fivept_stages(x1, x2):
     return xs, (basis, md, coef, npoly), (c, s), (md, coef, basis, seeds, is_real.repeat(3, 1))
 
 
-@pytest.mark.parametrize("B", [1, 37, 256, 1000])
+@pytest.mark.parametrize("B", [1, 37, 201, 256, 1000, 2048])
 def test_fivept_kernels_equal_plain(dev, B):
     """B6, B7, B8 each against its plain twin on the same card inputs: the
-    kernels repeat the twins' arithmetic (-fmad=false), so bit-equal.
-    B = 1 and 37 leave B6's last CTA of 4 samples part empty, 1 and 1000
-    B7's last warp of 3 polynomials."""
+    kernels repeat the twins' arithmetic (-fmad=false), so bit-equal, B8 on
+    every seed (E of invalid seeds too, NaN by position). B = 1 and 37
+    leave B6's last CTA of 4 samples part empty, 1 and 1000 B7's last warp
+    of 3 polynomials; B8 takes two samples a CTA at 201 and 256 on a card
+    of 132 SMs (201 leaves the last one part empty), one elsewhere."""
     x1, x2 = _fivept_samples(B)
     xs, front_out, dk_in, polish_in = _fivept_stages(x1.to(dev), x2.to(dev))
     before = dispatch.launch_counts()
@@ -315,7 +317,7 @@ def test_fivept_kernels_equal_plain(dev, B):
     want = fivept.polish_plain(*polish_in)
     torch.cuda.synchronize()
     assert torch.equal(valid, want[1])
-    assert torch.equal(Es[valid], want[0][valid])
+    assert _same_bits(Es, want[0])
     after = dispatch.launch_counts()
     for name in ("fivept_front", "fivept_dk", "fivept_polish"):
         assert after[name] == before[name] + 1
@@ -337,8 +339,10 @@ def test_fivept_kernels_planted_edges(dev, lead):
     five collinear, all at the origin: Gauss-Jordan's 1e-20 pivot floor,
     a NaN coordinate) and B7 on dk_edge_polys (a double root, a leading
     coefficient under dk_normalise's 1e-12 floor, an infinite and a NaN
-    coefficient), alone and after `lead` ordinary samples, against their
-    twins: NaN where the twin has NaN, equal bits elsewhere."""
+    coefficient), alone and after `lead` ordinary samples; B8 on the front's
+    outputs and DK's seeds of these, then with plant_polish_edges' seed
+    rows (NaN, +-inf, +-1e30) and all-zero sample; each against its twin:
+    NaN where the twin has NaN, equal bits elsewhere."""
     e1, e2 = synthetic.five_point_edge_samples()
     x1, x2 = _fivept_samples(lead) if lead else (torch.zeros(0, 5, 2), torch.zeros(0, 5, 2))
     x1 = torch.cat([x1, torch.from_numpy(e1)]).to(dev)
@@ -357,9 +361,19 @@ def test_fivept_kernels_planted_edges(dev, lead):
     torch.cuda.synchronize()
     assert _same_bits(roots, want[0]) and torch.equal(is_real, want[1])
     assert bool(torch.isnan(want[0][:, -2:]).all()) and not bool(want[1][:, -2:].any())
+    delta = 0.01 * (want[0].abs() + 1.0)
+    seeds = torch.cat([want[0], want[0] + delta, want[0] - delta]).contiguous()
+    polish_in = (front_out[1], front_out[2], front_out[0], seeds,
+                 want[1].repeat(3, 1).contiguous())
+    planted = synthetic.plant_polish_edges(*(t.clone() for t in polish_in))
+    for args in (polish_in, planted):
+        Es, valid = fivept.polish(*args)
+        want_p = fivept.polish_plain(*args)
+        torch.cuda.synchronize()
+        assert _same_bits(Es, want_p[0]) and torch.equal(valid, want_p[1])
     after = dispatch.launch_counts()
-    for name in ("fivept_front", "fivept_dk"):
-        assert after[name] == before[name] + 1
+    for name, n in (("fivept_front", 1), ("fivept_dk", 1), ("fivept_polish", 2)):
+        assert after[name] == before[name] + n
 
 
 def test_five_point_batch_card_against_cpu(dev):

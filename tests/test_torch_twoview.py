@@ -249,6 +249,77 @@ def test_dk_roots_match_reference(front_outputs):
     assert rel.max() <= 5e-2
 
 
+def _jax_polish(md, coef, basis, seeds, svalid):
+    """coloc_tpu's B8 on the front's outputs and (30, B) seeds, as
+    _five_point_batch_pallas launches it (seed rows padded to 32, lanes to
+    128). -> (E (B, 30, 9), valid (B, 30))."""
+    T, R, nb = jfp._LANE_TILE, jfp._SEED_ROWS, md.shape[-1]
+
+    def pad(a, rows=None):
+        widths = [(0, 0)] * (a.ndim - 1) + [(0, T - nb)]
+        if rows is not None:
+            widths[0] = (0, rows - a.shape[0])
+        return jnp.asarray(np.pad(a, widths))
+
+    spec = lambda *shape: pl.BlockSpec(shape, lambda i: (0,) * (len(shape) - 1) + (i,))
+    es, val = pl.pallas_call(
+        jfp._polish_kernel, grid=(1,),
+        in_specs=[spec(40, 20, T), spec(40, T), spec(36, T), spec(R, T), spec(R, T)],
+        out_specs=[spec(9, R, T), spec(R, T)],
+        out_shape=[jax.ShapeDtypeStruct((9, R, T), jnp.float32),
+                   jax.ShapeDtypeStruct((R, T), jnp.float32)],
+        interpret=True)(pad(md), pad(coef), pad(basis), pad(seeds, R),
+                        pad(svalid.astype(np.float32), R))
+    return (np.asarray(es)[:, :30, :nb].transpose(2, 1, 0),
+            np.asarray(val)[:30, :nb].T > 0.5)
+
+
+def test_polish_as_accurate_as_reference(front_outputs):
+    """B8 on identical inputs in both packages: coloc_tpu's front outputs
+    and the split seeds of the port's DK on its polynomials, through
+    coloc_tpu's Pallas polish (interpret mode) and the port's twin, with
+    the twin in float64 as the yardstick. Element-wise equality is
+    meaningless here: an unconverged seed's 5 Gauss-Newton steps amplify
+    XLA's FMA contraction, so on these samples the two valid masks differ
+    on ~90 of 1110 seeds and only ~73% of the seeds valid in both agree to
+    1e-4. The two are equally far from float64: the port's share of seeds
+    (valid in all three) within 1e-4 of it is at least coloc_tpu's less
+    0.03 (~75% and ~74%). Per sample, as in
+    test_five_point_captures_reference_solutions: every sample that
+    coloc_tpu solves (best held-out residual < 1e-4) the port solves too,
+    but for at most one marginal sample whose reference best lies above
+    1e-6."""
+    basis, md, coef, npoly = front_outputs[0]
+    c, s = tfp.dk_normalise(_t(npoly))
+    roots, is_real = tfp.dk_roots_plain(c, s)
+    delta = 0.01 * (roots.abs() + 1.0)
+    seeds = torch.cat([roots, roots + delta, roots - delta]).numpy()
+    svalid = is_real.repeat(3, 1).numpy()
+    Ej, vj = _jax_polish(md, coef, basis, seeds, svalid)
+    args = [_t(a) for a in (md, coef, basis, seeds)]
+    Et, vt = (a.numpy() for a in tfp.polish_plain(*args, _t(svalid)))
+    E64, v64 = (a.numpy() for a in tfp.polish_plain(*(a.double() for a in args), _t(svalid)))
+    assert Et.shape == Ej.shape == (B, 30, 9) and vt.shape == vj.shape == (B, 30)
+    all3 = vj & vt & v64
+    assert all3.sum() > 0.5 * all3.size
+    near_j = (np.abs(Ej - E64).max(-1)[all3] <= 1e-4).mean()
+    near_t = (np.abs(Et - E64).max(-1)[all3] <= 1e-4).mean()
+    assert near_t >= near_j - 0.03, (near_t, near_j)
+
+    x1, x2 = _samples()
+
+    def best(Es, val):
+        r = jax.vmap(lambda E, a, b: jax.vmap(
+            lambda e: jess.symmetric_epipolar_distance_sq(e, a, b).max())(E))(
+            jnp.asarray(Es.reshape(B, 30, 3, 3)), jnp.asarray(x1), jnp.asarray(x2))
+        return np.asarray(jnp.where(jnp.asarray(val), r, jnp.inf).min(axis=1))
+
+    bj, bt = best(Ej, vj), best(Et, vt)
+    lost = (bj < 1e-4) & ~(bt < 1e-4)
+    assert lost.sum() <= 1 and (bj[lost] > 1e-6).all(), (
+        np.argwhere(lost).ravel(), bj[lost], bt[lost])
+
+
 def test_five_point_captures_reference_solutions():
     """Per sample, every solution coloc_tpu's Pallas path finds (best
     held-out residual < 1e-4) the port finds too, but for at most one
