@@ -18,7 +18,8 @@ matcher against a 262144-row bank. Phases:
                 the shapes of the main path, with kernel and plain times;
                 B1 also at the AKAZE frame's and the large map's shapes,
                 B2 at B=1000, B3 at the AKAZE frame's M=5000, at small
-                shapes and on planted edge inputs, B4 on the D=1
+                shapes and on planted edge inputs, over a drone axis
+                against per-drone launches, B4 on the D=1
                 raster, B10 at the frame's four octaves, at B=2 and at
                 edge shapes, B11 on the frame's two sampler calls and
                 at K=1 and NS=1, B9 and B12 on the planted edge inputs of
@@ -43,7 +44,10 @@ matcher against a 262144-row bank. Phases:
                 events, and the frame's features on the card against the
                 plain CPU path
   4c step     — STEPS session steps (intra_all_device_step) for 2 drones
-                with the Kalman bank
+                with the Kalman bank, batched over the drones (one P3P and
+                one B3 launch a step), with kernel launches and host reads
+                a step, timed in turns with the per-drone form (2 calls of
+                the D=1 body)
   4d session  — ColocSession: init_map on frame 0 of two drones (model-E
                 five-point AC-RANSAC, triangulation, full BA), then
                 SESSION_FRAMES frames of intra_pose_all, checked against
@@ -60,6 +64,16 @@ matcher against a 262144-row bank. Phases:
   4g large map — match_with_map through the two-stage matcher and through
                 brute force on one 262144-row bank: equal accepted sets,
                 both ops' latency
+  4h chunked  — the sync check (one eager TRIP step with its draws
+                injected raises nothing under torch.cuda's sync debug mode
+                "error"; the AKAZE step's synchronising sites listed, its
+                chunk refused), then run_chunked(chunk=CHUNK) on 4d's
+                trajectory from the bootstrap on CUDA graphs, checked as 4d
+                and against the same frames stepped eagerly; the captured
+                step equal to the eager step (torch.equal, every output)
+                from identical inputs and draws, CHECKED frames; frames/s, step
+                p50/p99 captured against eager in turns, graph nodes and
+                host reads a frame, the idle share, capture time
   5. counters — every kernel of each path launched during its phase
 
 Any failed check raises and the script exits non-zero. The last two lines
@@ -84,6 +98,11 @@ LEVELS, FAST_THRESHOLD, SCENE_SEED = 8, 12, 1
 FULL_FRAMES, STAGED_FRAMES, PROFILED_FRAMES = 30, 10, 3
 STEP_DRONES, STEPS = 2, 12
 SESSION_FRAMES = 10
+# the chunked session (4h): run_chunked over two chunks of CHUNK frames,
+# then ROUNDS timed chunks in turns with as many eager frames
+CHUNK, CHUNKS, ROUNDS = 16, 2, 3
+# frames of 4h held to the eager step bit for bit
+CHECKED = 4
 WARMUP, ITERS = 10, 100
 # the AKAZE frame op at the reference's CPU preset (bench.py _bench_akaze)
 # and the AKAZE session (bench.py config_akaze)
@@ -132,6 +151,7 @@ PATH_KERNELS = {
     "4e akaze frame": AKAZE_KERNELS,
     "4f akaze session": AKAZE_KERNELS + BOOTSTRAP_KERNELS,
     "4g large map": ("k2nn_group", "k2nn"),
+    "4h chunked": FRAME_KERNELS + BOOTSTRAP_KERNELS,
 }
 # the phase whose launches the kernels line reports
 LAUNCH_PHASE = {**{name: "4b frame" for name in FRAME_KERNELS},
@@ -367,9 +387,10 @@ def print_stages(torch, np, tag, run, n):
         + f" ms; sum {sum(np.percentile(v, 50) for v in stage_ms.values()):.3f} ms")
 
 
-def profile_frames(torch, tag, run, n):
-    """run(f) for n frames under torch.profiler: device kernels a frame,
-    device busy and idle share, the largest device kernels."""
+def profile_frames(torch, tag, run, n, per=1):
+    """run(f) for n calls of `per` frames each under torch.profiler: device
+    kernels a frame, device busy and idle share, the largest device
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -378,6 +399,7 @@ def profile_frames(torch, tag, run, n):
             run(f)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    n *= per
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
@@ -401,6 +423,21 @@ def profile_frames(torch, tag, run, n):
             and "at::" not in name}
     print(f"[{tag} profile] the port's kernels, device us a frame: " + "; ".join(
         f"{name} {us / n:.1f}" for name, us in sorted(ours.items(), key=lambda kv: -kv[1])))
+
+
+def host_reads(torch, fn):
+    """fn() under torch.cuda's sync debug mode "warn" -> (its result, the
+    number of operations that synchronised the host with the card)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
 def percentiles(np, ms):
@@ -455,6 +492,183 @@ def workload(np, rng):
     X = ma.X.copy()
     X[:n_out] = rng.uniform(-50.0, 50.0, (n_out, 3)).astype(np.float32)
     return fa, ma._replace(X=X), K, n_out
+
+
+def rotation_error(torch, R, R_ref):
+    """Angle between two rotations, rad: ||R - R_ref||_F = 2 sqrt(2)
+    sin(angle / 2), exact near 0 where arccos of the trace is not."""
+    d = torch.linalg.norm((R - R_ref).double()) / (2.0 * 2.0 ** 0.5)
+    return float(2.0 * torch.asin(torch.clamp(d, max=1.0)))
+
+
+def phase_4h(torch, np, dev, card, cfg_d, Ks2, dists2, frames, traj, counts):
+    """The chunked session on CUDA graphs: run_chunked(chunk=CHUNK) from the
+    bootstrap over CHUNKS chunks, checked as 4d checks intra_pose_all and
+    against the same frames stepped eagerly (intra_pose_all); the captured
+    step held to the eager step with torch.equal from identical static
+    inputs and draws; frames/s and step p50/p99 captured
+    against eager in turns, graph nodes and host reads a frame, the idle
+    share, capture time. -> the session."""
+    from coloc_tpu_torch import session
+    from coloc_tpu_torch.ops import dispatch
+
+    n_frames = CHUNK * CHUNKS + 1
+
+    def tensors(p):
+        return (p.pose.R, p.pose.C, p.cov, p.rmse, p.n_tracks, p.success)
+
+    # the captured step's replays, timed by CUDA events
+    replay_ms, real_replay = [], session._StepGraphs.replay
+
+    def timed_replay(self, images, draws):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_replay(self, images, draws)
+        end.record()
+        replay_ms.append((start, end))
+        return out
+
+    sess_c = session.ColocSession(cfg_d, Ks2, dists2, seed=SEED)
+    sess_e = session.ColocSession(cfg_d, Ks2, dists2, seed=SEED)
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_c = sess_c.run_chunked(frames, chunk=CHUNK, inter_every=0)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    counts["4h chunked"] = dispatch.launch_counts()
+    g = sess_c._graphs
+    check(g is not None, "run_chunked did not step a captured graph")
+    errs, accepted = [], torch.zeros(2, dtype=torch.int32)
+    out_e = {0: [], 1: []}
+    equal = True
+    check(sess_e.init_map({d: frames[d][0] for d in range(2)}), "4h eager init_map failed")
+    for f in range(1, n_frames):
+        sess_e.frame = f
+        res = sess_e.intra_pose_all({d: frames[d][f] for d in range(2)})
+        accepted += torch.stack([res[d].success for d in range(2)]).cpu().int() \
+            * (~sess_e.last_rejected.cpu()).int()
+        for d in range(2):
+            out_e[d].append(res[d])
+            pc = out_c[d][f - 1]
+            check(bool(pc.success), f"4h frame {f} drone {d}: localization failed")
+            R_gt = torch.from_numpy(traj[d][0][f] @ traj[0][0][0].T).to(dev)
+            errs.append(rotation_error(torch, pc.pose.R, R_gt))
+            check(float(torch.linalg.norm(pc.pose.C - res[d].pose.C)) < 0.03,
+                  f"4h frame {f} drone {d}: captured and eager centres > 0.03 apart")
+            equal = equal and all(torch.equal(a, b) for a, b in zip(tensors(pc),
+                                                                     tensors(res[d])))
+    check(len(out_c[0]) == n_frames - 1, f"4h: {len(out_c[0])} frames of {n_frames - 1}")
+    check(torch.equal(sess_e.filter_bank.steps.cpu(), accepted),
+          f"4h eager: filter steps {sess_e.filter_bank.steps.tolist()} != accepted "
+          f"{accepted.tolist()}")
+    check(torch.equal(sess_c.filter_bank.steps, sess_e.filter_bank.steps),
+          f"4h: captured filter steps {sess_c.filter_bank.steps.tolist()}, eager "
+          f"{sess_e.filter_bank.steps.tolist()}")
+    errs_deg = np.degrees(np.asarray(errs))
+    check(np.median(errs_deg) < 1.0 and errs_deg.max() < 2.0,
+          f"4h rotation error median {np.median(errs_deg):.3f}, max {errs_deg.max():.3f} deg")
+    print(f"[4h chunked] run_chunked(chunk={CHUNK}): init_map then {n_frames - 1} frames of 2 "
+          f"drones ok in {wall_c:.3f} s; rotation error median {np.median(errs_deg):.4f}, max "
+          f"{errs_deg.max():.4f} deg; filter steps {sess_c.filter_bank.steps.tolist()}; every "
+          f"frame bit-equal to the eager run from the same seed: {equal}; capture "
+          f"{g.capture_seconds:.3f} s; host reads {g.host_reads / (n_frames - 1):.2f} a frame")
+
+    # the captured step against the eager step, identical static inputs and
+    # draws (uniforms), frame by frame from one state
+    block = torch.stack([torch.stack([torch.from_numpy(frames[d][f]) for d in range(2)])
+                         for f in range(1, CHECKED + 1)]).to(dev)
+    u = torch.stack([sess_c._draw(2) for _ in range(CHECKED)])
+    g.load(sess_c)
+    reads0 = g.host_reads
+    fb, sup, last = sess_c.filter_bank, sess_c.lm_support, sess_c.lm_last_seen
+    for f in range(CHECKED):
+        out = g.replay(block[f], u[f])
+        pwcs, fb, filt, _, rej, _, sup_inc = session.intra_all_device_step(
+            cfg_d, block[f], sess_c.mapdb, sess_c._map_bank(), sess_c.Ks, sess_c.dists, fb,
+            uniforms=u[f])
+        sup, last = session._support(sup, last, sup_inc, sess_c.frame + f)
+        want = session._chunk_out(pwcs, filt, rej)
+        for name, a, b in zip(want._fields, out, want):
+            check(torch.equal(a, b), f"4h: captured {name} of frame {f} differs from the "
+                  f"eager step's")
+        for name, a, b in zip(("filter x", "filter P", "filter steps"), g.fb, fb):
+            check(torch.equal(a, b), f"4h: captured {name} of frame {f} differs from eager")
+        check(torch.equal(g.sup, sup) and torch.equal(g.last, last),
+              f"4h: captured landmark support of frame {f} differs from eager")
+    nodes = g.node_count()
+    print(f"[4h equal] {CHECKED} frames: the captured step equal to the eager step on every "
+          f"output, the filter bank and the support (torch.equal); "
+          f"{nodes if nodes is not None else 'not measured'} graph nodes a frame (head and "
+          f"tail), {(g.host_reads - reads0) / CHECKED:.2f} host reads a frame  ({card})")
+
+    # frames/s and step p50/p99: captured chunks and eager frames in turns
+    block_c = torch.stack([torch.stack([torch.from_numpy(frames[d][f]) for d in range(2)])
+                           for f in range(1, CHUNK + 1)]).to(dev)
+    cap_ms, eager_ms, cap_wall, eager_wall = [], [], [], []
+    session._StepGraphs.replay = timed_replay
+    try:
+        for r in range(ROUNDS):
+            replay_ms.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess_c.intra_pose_chunk(block_c)
+            torch.cuda.synchronize()
+            cap_wall.append((time.perf_counter() - t0) * 1e3 / CHUNK)
+            cap_ms += [a.elapsed_time(b) for a, b in replay_ms]
+            t0 = time.perf_counter()
+            for f in range(CHUNK):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                sess_e.intra_pose_all({d: block_c[f, d] for d in range(2)})
+                end.record()
+                torch.cuda.synchronize()
+                eager_ms.append(start.elapsed_time(end))
+            eager_wall.append((time.perf_counter() - t0) * 1e3 / CHUNK)
+    finally:
+        session._StepGraphs.replay = real_replay
+    print(f"[4h timing] {ROUNDS} rounds of a {CHUNK}-frame chunk and {CHUNK} eager frames in "
+          f"turns: captured step {percentiles(np, cap_ms)}, {1e3 / np.mean(cap_wall):.1f} "
+          f"frames/s; eager intra_pose_all {percentiles(np, eager_ms)}, "
+          f"{1e3 / np.mean(eager_wall):.1f} frames/s; eager / captured p50 "
+          f"{np.percentile(eager_ms, 50) / np.percentile(cap_ms, 50):.2f}  ({card})")
+    profile_frames(torch, f"4h captured, a {CHUNK}-frame chunk",
+                   lambda f: sess_c.intra_pose_chunk(block_c), 1, CHUNK)
+    profile_frames(torch, "4h eager",
+                   lambda f: sess_e.intra_pose_all({d: block_c[f, d] for d in range(2)}),
+                   min(4, CHUNK))
+    return sess_c
+
+
+def sync_check(torch, cfg_x, sess, images, tag, mode="warn"):
+    """One eager frame step on the card with its draws injected and the
+    pose LM's exit left to its done mask, under torch.cuda's sync debug
+    mode `mode` ("error" raises at the first synchronising operation): ->
+    the file:line of each operation that synchronised."""
+    import warnings
+
+    from coloc_tpu_torch import session
+
+    idx = torch.randint(0, 64, (2, cfg_x.ransac.num_hypotheses, 3), device=images.device,
+                        generator=torch.Generator(images.device).manual_seed(SEED))
+    step = lambda: session.intra_all_device_step(  # noqa: E731
+        cfg_x, images, sess.mapdb, sess._map_bank(), sess.Ks, sess.dists, sess.filter_bank,
+        sample_idx=idx, check_every=cfg_x.refiner.max_iterations)
+    step()      # the caches a first call fills
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    found = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message)})
+    print(f"[4h sync {tag}] one eager step, draws injected, LM exit on the device: "
+          f"{len(found)} synchronising operation sites{': ' + ', '.join(found) if found else ''}")
+    return found
 
 
 def main(argv=None) -> int:
@@ -697,6 +911,53 @@ def main(argv=None) -> int:
                   f"on {int((rk != rp).sum())} models (max |diff| {d})")
         print(f"[3 ransac_rank] {tag}: equal to the twin in both zmodes (torch.equal), "
               f"ranks {float(rp.min()):.0f}-{float(rp.max()):.0f} (nonzero)")
+
+    # B3's drone axis (one launch, the grid's z): each drone's ranks equal
+    # to a D = 1 launch on its slabs and to the batched twin, in both
+    # zmodes, at (D, Hm, M) = (2, 256, 1024) and (3, 1024, 5000), each
+    # drone its own rows of the models and its own mask; and the planted
+    # edges tiled over 3 drones, drone d's mask rolled by d
+    def drone_stack(ops_c, D, Hm, seed):
+        g = np.random.default_rng(seed)
+        rows = [torch.from_numpy(g.permutation(ops_c[0].shape[0])[:Hm]).to(dev)
+                for _ in range(D)]
+        masks = [torch.where(torch.from_numpy(g.random(ops_c[3].shape[0]) < 0.1).to(dev),
+                             0.0, ops_c[3]) for _ in range(D)]
+        return (torch.stack([ops_c[0][r] for r in rows]).contiguous(),
+                torch.stack([ops_c[1]] * D).contiguous(), torch.stack([ops_c[2]] * D).contiguous(),
+                torch.stack(masks).contiguous())
+
+    drone_inputs = (("D=2 x Hm=256 x M=1024", drone_stack(ops, 2, 256, SEED + 5), thr_sq),
+                    (f"D=3 x Hm=1024 x M={AKAZE_RANK_M}", drone_stack(ops_m, 3, 1024, SEED + 6),
+                     thr_sq),
+                    ("planted D=3 x 1000 x 1261",
+                     (torch.stack([tiled[0]] * 3).contiguous(),
+                      *(torch.stack([t] * 3).contiguous() for t in tiled[1:3]),
+                      torch.stack([tiled[3].roll(d) for d in range(3)]).contiguous()),
+                     cases.THR_SQ))
+    for tag, ops_c, thr_c in drone_inputs:
+        for zmode in ("pos", "nonzero"):
+            n0 = dispatch.launch_counts()["ransac_rank"]
+            rk = ransac_rank._ladder_rank_cuda(*ops_c, thr_c, zmode, 2, 5)
+            check(dispatch.launch_counts()["ransac_rank"] == n0 + 1,
+                  f"rank {tag}: the drone axis took more than one launch")
+            rp = ransac_rank.ladder_rank_plain(*ops_c, thr_c, zmode)
+            for d in range(ops_c[0].shape[0]):
+                one = ransac_rank._ladder_rank_cuda(*(t[d] for t in ops_c), thr_c, zmode, 2, 5)
+                torch.cuda.synchronize()
+                check(torch.equal(rk[d], one), f"rank {tag} zmode={zmode}: drone {d} differs "
+                      f"from its D=1 launch on {int((rk[d] != one).sum())} models")
+            check(torch.equal(rk, rp), f"rank {tag} zmode={zmode} differs from its plain twin "
+                  f"on {int((rk != rp).sum())} models")
+        print(f"[3 ransac_rank drone axis] {tag}: one launch, each drone equal to its D=1 "
+              f"launch and to the twin in both zmodes (torch.equal)")
+    ops_d = drone_inputs[0][1]
+    ms_d = cuda_ms(lambda: ransac_rank._ladder_rank_cuda(*ops_d, thr_sq, "pos", 2, 5))
+    ms_1 = cuda_ms(lambda: [ransac_rank._ladder_rank_cuda(*(t[d] for t in ops_d), thr_sq,
+                                                          "pos", 2, 5) for d in range(2)])
+    print(f"[3 ransac_rank drone axis] D=2 x Hm=256 x M=1024: one launch {ms_d:.4f} ms, two "
+          f"D=1 launches {ms_1:.4f} ms (wrapper, CUDA events)  ({card})")
+    del drone_inputs, ops_d
 
     def rank_pair(ops_c):
         """This tree's B3 and, with --parent, the parent's on the same operands."""
@@ -1586,25 +1847,30 @@ def main(argv=None) -> int:
     check(bits >= 0.99, f"card vs CPU: {bits:.4f} of bits equal < 0.99")
 
     # ---- phase 4c: the session's frame step, 2 drones -------------------
+    # the batched step (one frontend, one 2-NN, one P3P launch of D x 256
+    # samples, one B3 launch, one LM over the drone axis), timed in turns
+    # with the per-drone form: D calls of the same body at D = 1
     cfg_s = config.ColocConfig(num_drones=STEP_DRONES, detector=opts)
     imgs = torch.from_numpy(np.stack([frame] * STEP_DRONES)).to(dev)
     Ks = torch.from_numpy(np.stack([K] * STEP_DRONES)).to(dev)
     dists = torch.zeros((STEP_DRONES, 3), device=dev)
     fb = kalman.init(STEP_DRONES, cfg_s.filter, dev)
+    fb_one = [kalman.FilterBank(*(t[d:d + 1].clone() for t in fb)) for d in range(STEP_DRONES)]
     accepted = torch.zeros(STEP_DRONES, dtype=torch.int32)
-    step_ms = []
+    step_ms, per_drone_ms, reads = [], [], []
     dispatch.reset_launch_counts()
     for s in range(STEPS + 1):
-        gens = [torch.Generator(device=dev).manual_seed(3000 + STEP_DRONES * s + d)
-                for d in range(STEP_DRONES)]
+        gen = torch.Generator(device=dev).manual_seed(3000 + s)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        pwcs, fb, filt, gate, rej, eul, sup = session.intra_all_device_step(
-            cfg_s, imgs, mapdb_f, bank_f, Ks, dists, fb, generators=gens)
+        (pwcs, fb, filt, gate, rej, eul, sup), n_reads = host_reads(
+            torch, lambda: session.intra_all_device_step(cfg_s, imgs, mapdb_f, bank_f, Ks,
+                                                         dists, fb, generator=gen))
         end.record()
         torch.cuda.synchronize()
         step_ms.append(start.elapsed_time(end))
+        reads.append(n_reads)
         for d in range(STEP_DRONES):
             rot_err, c_err = pose_errors(torch, pwcs.pose.R[d], pwcs.pose.C[d])
             check(bool(pwcs.success[d]), f"step {s} drone {d}: localization failed")
@@ -1617,11 +1883,36 @@ def main(argv=None) -> int:
               f"step {s}: filter steps {fb.steps.tolist()} != accepted {accepted.tolist()}")
         check(not bool(sup[:n_out].any()) and int(sup.sum()) > 0,
               f"step {s}: landmark support counts")
-    counts["4c step"] = dispatch.launch_counts()
+        if s == 0:
+            counts["4c step"] = dispatch.launch_counts()
+            per_step = counts["4c step"]
+        # the per-drone form, in turn
+        gen = torch.Generator(device=dev).manual_seed(3000 + s)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for d in range(STEP_DRONES):
+            out_d = session.intra_all_device_step(
+                cfg_s, imgs[d:d + 1], mapdb_f, bank_f, Ks[d:d + 1], dists[d:d + 1],
+                fb_one[d], generator=gen)
+            fb_one[d] = out_d[1]
+            check(bool(out_d[0].success[0]), f"step {s} drone {d} alone: localization failed")
+        end.record()
+        torch.cuda.synchronize()
+        per_drone_ms.append(start.elapsed_time(end))
     print(f"[4c step] {STEPS + 1} steps of {STEP_DRONES} drones ok; filter steps "
           f"{fb.steps.tolist()}, filtered C {[round(v, 5) for v in filt.C.flatten().tolist()]}; "
           f"latency after step 0: {percentiles(np, step_ms[1:])}; step 0 "
           f"{step_ms[0]:.3f} ms  ({card})")
+    print(f"[4c step] kernel launches a step: {per_step}; host reads a step "
+          f"{min(reads)}-{max(reads)} (torch.cuda sync debug mode, the pose LM's exit "
+          f"every {session.LM_CHECK_EVERY} iterations)")
+    print(f"[4c step] per-drone form ({STEP_DRONES} calls of the D=1 body), in turns: "
+          f"{percentiles(np, per_drone_ms[1:])}; batched / per-drone p50 "
+          f"{np.percentile(step_ms[1:], 50) / np.percentile(per_drone_ms[1:], 50):.3f}")
+    profile_frames(torch, "4c", lambda f: session.intra_all_device_step(
+        cfg_s, imgs, mapdb_f, bank_f, Ks, dists, fb,
+        generator=torch.Generator(device=dev).manual_seed(3100 + f)), 3)
 
     # ---- phase 4d: the session, two drones' frames in, poses out ---------
     scene = synthetic.make_scene(H, W, K, seed=SCENE_SEED)
@@ -1633,10 +1924,7 @@ def main(argv=None) -> int:
     Ks2, dists2 = np.stack([K, K]), np.zeros((2, 3), np.float32)
 
     def rot_err(R, R_ref):
-        """Angle between two rotations, rad: ||R - R_ref||_F = 2 sqrt(2)
-        sin(angle / 2), exact near 0 where arccos of the trace is not."""
-        d = torch.linalg.norm((R - R_ref).double()) / (2.0 * 2.0 ** 0.5)
-        return float(2.0 * torch.asin(torch.clamp(d, max=1.0)))
+        return rotation_error(torch, R, R_ref)
 
     def drive_session(tag, cfg_x):
         """A ColocSession on cuda:0 unasked: init_map on frame 0 of drones 0
@@ -1659,7 +1947,7 @@ def main(argv=None) -> int:
         check(ba.cov.shape == (6, 6) and bool(torch.isfinite(ba.cov).all()),
               f"{tag}: drone 1's bootstrap covariance is not a finite 6x6")
         print(f"[{tag} init_map] {init_ms:.3f} ms; {int(geo.n_inliers)} E inliers, {n_lm} "
-              f"landmarks, BA {ba.iterations} LM iterations, rmse {float(ba.rmse):.4f} px, "
+              f"landmarks, BA {int(ba.iterations)} LM iterations, rmse {float(ba.rmse):.4f} px, "
               f"launches {dispatch.launch_counts()}  ({card})")
 
         sess_ms, errs, centres = [], [], []
@@ -1834,7 +2122,7 @@ def main(argv=None) -> int:
         num_drones=2, matcher=matcher_a, max_landmarks=LANDMARKS,
         detector=config.DetectorOptions(width=W, height=H, max_keypoints=KP,
                                         num_levels=LEVELS, backend="akaze"))
-    _, counts["4f akaze session"] = drive_session("4f", cfg_a)
+    sess_a, counts["4f akaze session"] = drive_session("4f", cfg_a)
 
     # ---- phase 4g: the large-map matcher, two-stage against brute force ---
     # phase 3's bank (262144 rows, 5% invalid) and planted queries; the
@@ -1882,6 +2170,24 @@ def main(argv=None) -> int:
           f"{percentiles(np, ms_g['two-stage'])}, brute force "
           f"{percentiles(np, ms_g['brute force'])} over {TWOSTAGE_CALLS} calls each; "
           f"brute force / two-stage {p50['brute force'] / p50['two-stage']:.2f}  ({card})")
+
+    # ---- phase 4h: chunked stepping on CUDA graphs (run_chunked) ----------
+    # the sync check first: the TRIP step must raise nothing under "error"
+    check(not sync_check(torch, cfg_d, sess, imgs, "TRIP"),
+          "the TRIP frame step synchronises with the host")
+    sync_check(torch, cfg_d, sess, imgs, "TRIP, mode error", mode="error")
+    found_a = sync_check(torch, cfg_a, sess_a, imgs, "AKAZE")
+    try:
+        sess_a.intra_pose_chunk(imgs[None])
+        check(False, "the AKAZE chunk ran: ROADMAP A5a-3 says it is not captured")
+    except NotImplementedError as e:
+        print(f"[4h sync AKAZE] intra_pose_chunk raises NotImplementedError ({e}); "
+              f"{len(found_a)} sites found")
+    n_h = CHUNK * CHUNKS + 1
+    traj_h = [synthetic.trajectory(n_h, d) for d in range(2)]
+    frames_h = {d: [synthetic.render(scene, traj_h[d][0][f], traj_h[d][1][f]).astype(np.float32)
+                    for f in range(n_h)] for d in range(2)}
+    phase_4h(torch, np, dev, card, cfg_d, Ks2, dists2, frames_h, traj_h, counts)
 
     # ---- phase 5: each path went through its kernels -------------------
     for phase, names in PATH_KERNELS.items():

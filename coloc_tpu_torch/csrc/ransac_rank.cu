@@ -42,6 +42,10 @@
 // A mask value other than 0 or 1 (never produced by the callers, which
 // pass valid.to(float32)) takes a float path, count * mask, so NaN masks
 // propagate as in the twin; such sums are exact only up to order.
+// A drone axis is the grid's z: z reads its own (Hm, 12), (4, M), (2, M),
+// (M,) slabs and writes its own (Hm,) ranks, so D drones are one launch
+// (coloc_ransac_rank_batched) and each drone's ranks are those of a D = 1
+// launch on its slabs (coloc_ransac_rank).
 #include <cooperative_groups.h>
 
 #include <cmath>
@@ -160,6 +164,13 @@ rank_kernel(const float* __restrict__ E, const float* __restrict__ xh,
   __shared__ float pts[7][kStage];
   __shared__ Partial part[kSplit][kTileModels];  // rank 0's receives every CTA's
   cluster_arrive_relaxed();  // this CTA has started; waited on before any remote store
+  // drone z's slabs
+  const size_t z = blockIdx.z;
+  E += z * Hm * 12;
+  xh += z * 4 * M;
+  obs += z * 2 * M;
+  mask += z * M;
+  rank += z * Hm;
   const int split = static_cast<int>(cg::this_cluster().block_rank());
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h0 = blockIdx.x * kTileModels + warp * kWarpModels;
@@ -260,15 +271,39 @@ rank_kernel(const float* __restrict__ E, const float* __restrict__ xh,
 
 template <bool kGeneric, int kZmode>
 cudaError_t launch(const float* E, const float* xh, const float* obs, const float* mask,
-                   float* rank, int Hm, int M, float thr_sq, int jmin, int n_rungs,
+                   float* rank, int D, int Hm, int M, float thr_sq, int jmin, int n_rungs,
                    cudaStream_t stream) {
   Rungs rungs{};
   if (!kGeneric)
     for (int j = 0; j < kRungs; ++j) rungs.r[j] = std::ldexp(thr_sq, 2 * (jmin + j));
-  const dim3 grid((Hm + kTileModels - 1) / kTileModels, kSplit);
+  const dim3 grid((Hm + kTileModels - 1) / kTileModels, kSplit, D);
   rank_kernel<kGeneric, kZmode><<<grid, kThreads, 0, stream>>>(E, xh, obs, mask, rank, Hm, M,
                                                                 rungs, thr_sq, jmin, n_rungs);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+namespace {
+
+int launch_any(const void* E, const void* xh, const void* obs, const void* mask, void* rank,
+               int D, int Hm, int M, float thr_sq, int jmin, int n_rungs, int zmode,
+               int device, void* stream) {
+  cudaError_t err = coloc::set_device(device);
+  if (err != cudaSuccess) return err;
+  if (Hm <= 0 || D <= 0) return cudaSuccess;
+  if (D > 65535) return cudaErrorInvalidValue;
+  const auto* e = static_cast<const float*>(E);
+  const auto* x = static_cast<const float*>(xh);
+  const auto* o = static_cast<const float*>(obs);
+  const auto* m = static_cast<const float*>(mask);
+  auto* r = static_cast<float*>(rank);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n_rungs == kRungs)
+    return zmode == 0 ? launch<false, 0>(e, x, o, m, r, D, Hm, M, thr_sq, jmin, n_rungs, s)
+                      : launch<false, 1>(e, x, o, m, r, D, Hm, M, thr_sq, jmin, n_rungs, s);
+  return zmode == 0 ? launch<true, 0>(e, x, o, m, r, D, Hm, M, thr_sq, jmin, n_rungs, s)
+                    : launch<true, 1>(e, x, o, m, r, D, Hm, M, thr_sq, jmin, n_rungs, s);
 }
 
 }  // namespace
@@ -278,18 +313,16 @@ cudaError_t launch(const float* E, const float* xh, const float* obs, const floa
 extern "C" int coloc_ransac_rank(const void* E, const void* xh, const void* obs,
                                  const void* mask, void* rank, int Hm, int M, float thr_sq,
                                  int jmin, int n_rungs, int zmode, int device, void* stream) {
-  cudaError_t err = coloc::set_device(device);
-  if (err != cudaSuccess) return err;
-  if (Hm <= 0) return cudaSuccess;
-  const auto* e = static_cast<const float*>(E);
-  const auto* x = static_cast<const float*>(xh);
-  const auto* o = static_cast<const float*>(obs);
-  const auto* m = static_cast<const float*>(mask);
-  auto* r = static_cast<float*>(rank);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (n_rungs == kRungs)
-    return zmode == 0 ? launch<false, 0>(e, x, o, m, r, Hm, M, thr_sq, jmin, n_rungs, s)
-                      : launch<false, 1>(e, x, o, m, r, Hm, M, thr_sq, jmin, n_rungs, s);
-  return zmode == 0 ? launch<true, 0>(e, x, o, m, r, Hm, M, thr_sq, jmin, n_rungs, s)
-                    : launch<true, 1>(e, x, o, m, r, Hm, M, thr_sq, jmin, n_rungs, s);
+  return launch_any(E, xh, obs, mask, rank, 1, Hm, M, thr_sq, jmin, n_rungs, zmode, device,
+                    stream);
+}
+
+// The same over a drone axis: E (D,Hm,12), xh (D,4,M), obs (D,2,M), mask
+// (D,M) -> rank (D,Hm), one launch (grid z = D, at most 65535).
+extern "C" int coloc_ransac_rank_batched(const void* E, const void* xh, const void* obs,
+                                         const void* mask, void* rank, int D, int Hm, int M,
+                                         float thr_sq, int jmin, int n_rungs, int zmode,
+                                         int device, void* stream) {
+  return launch_any(E, xh, obs, mask, rank, D, Hm, M, thr_sq, jmin, n_rungs, zmode, device,
+                    stream);
 }

@@ -33,6 +33,7 @@ import torch
 from coloc_tpu_torch import akaze
 from coloc_tpu_torch.config import DetectorOptions
 from coloc_tpu_torch.ops import descriptor as desc_ops
+from coloc_tpu_torch.ops import dispatch
 from coloc_tpu_torch.ops import fast as fast_ops
 from coloc_tpu_torch.ops import orientation as orient_ops
 from coloc_tpu_torch.ops import patches as patch_ops
@@ -108,9 +109,10 @@ def _describe_from_levels(levels: List[torch.Tensor],
     sp_raw = patch_ops.stack_levels_batch(levels)
     sp_sm = patch_ops.stack_levels_batch(smoothed)
     wp, R = sp_raw.wp, sp_raw.img_rows
-    rb = torch.as_tensor(sp_raw.row_base, device=dev).to(torch.int64)
-    heights = torch.as_tensor(sp_raw.heights, device=dev)
-    widths = torch.as_tensor(sp_raw.widths, device=dev)
+    # the level tables, made once per geometry and device
+    rb = dispatch.constant(tuple(int(r) for r in sp_raw.row_base), dev, torch.int64)
+    heights = dispatch.constant(tuple(int(h) for h in sp_raw.heights), dev, torch.int32)
+    widths = dispatch.constant(tuple(int(w) for w in sp_raw.widths), dev, torch.int32)
 
     # detection: FAST + NMS over the batched raster, exact top-k per image
     raw, nms = fast_ops.fast_nms(sp_raw.stacked, opts.fast_threshold)
@@ -151,8 +153,8 @@ def _describe_from_levels(levels: List[torch.Tensor],
     mark("descriptor")
 
     # full-resolution coordinates (GPUDetector.hpp:172-182 parity)
-    scale = torch.pow(torch.tensor(opts.scale_factor, dtype=torch.float32,
-                                   device=dev), kp_l.to(torch.float32))
+    scale = torch.pow(dispatch.constant(float(opts.scale_factor), dev),
+                      kp_l.to(torch.float32))
     xy = torch.stack([kp_x * scale, kp_y * scale], dim=-1)
     feats = Features(
         xy=torch.where(valid[:, None], xy, 0.0),

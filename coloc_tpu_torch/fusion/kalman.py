@@ -114,8 +114,7 @@ def update(
     one = FilterBank(*(t[drone:drone + 1] for t in bank))
     new, pose, dist, rej = update_all(
         one, z[None], cov_center[None],
-        torch.as_tensor(rmse, dtype=z.dtype, device=z.device).reshape(1),
-        torch.as_tensor(available, device=z.device).reshape(1), opts)
+        rmse.to(z.dtype).reshape(1), available.reshape(1), opts)
     merged = []
     for full, part in zip(bank, new):
         full = full.clone()

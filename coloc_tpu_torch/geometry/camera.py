@@ -3,7 +3,9 @@ coloc_tpu.geometry.camera).
 
 Forward distortion x_d = x_u (1 + k1 r^2 + k2 r^4 + k3 r^6) in normalized
 coords; undistortion by the same 10-step fixed-point iteration. All
-functions take (..., 2) pixel tensors.
+functions take (..., 2) pixel tensors. A camera of D drones holds K (D, 1,
+3, 3) and dist (D, 1, 3): its intrinsics then broadcast against (D, M, 2)
+pixels (the drone axis of the batched frame step).
 """
 
 from __future__ import annotations
@@ -14,24 +16,24 @@ import torch
 
 
 class Camera(NamedTuple):
-    K: torch.Tensor     # (3, 3) intrinsics
-    dist: torch.Tensor  # (3,) radial k1, k2, k3
+    K: torch.Tensor     # (..., 3, 3) intrinsics
+    dist: torch.Tensor  # (..., 3) radial k1, k2, k3
 
     @property
     def fx(self):
-        return self.K[0, 0]
+        return self.K[..., 0, 0]
 
     @property
     def fy(self):
-        return self.K[1, 1]
+        return self.K[..., 1, 1]
 
     @property
     def cx(self):
-        return self.K[0, 2]
+        return self.K[..., 0, 2]
 
     @property
     def cy(self):
-        return self.K[1, 2]
+        return self.K[..., 1, 2]
 
 
 _UNDISTORT_ITERS = 10
@@ -39,20 +41,20 @@ _UNDISTORT_ITERS = 10
 
 def normalize(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
     """Pixel -> normalized image coords (no distortion removal)."""
-    f = torch.stack([cam.fx, cam.fy])
-    c = torch.stack([cam.cx, cam.cy])
+    f = torch.stack([cam.fx, cam.fy], dim=-1)
+    c = torch.stack([cam.cx, cam.cy], dim=-1)
     return (uv - c) / f
 
 
 def denormalize(cam: Camera, xy: torch.Tensor) -> torch.Tensor:
-    f = torch.stack([cam.fx, cam.fy])
-    c = torch.stack([cam.cx, cam.cy])
+    f = torch.stack([cam.fx, cam.fy], dim=-1)
+    c = torch.stack([cam.cx, cam.cy], dim=-1)
     return xy * f + c
 
 
 def _radial_factor(cam: Camera, xy: torch.Tensor) -> torch.Tensor:
     r2 = (xy * xy).sum(dim=-1, keepdim=True)
-    k1, k2, k3 = cam.dist[0], cam.dist[1], cam.dist[2]
+    k1, k2, k3 = cam.dist[..., 0:1], cam.dist[..., 1:2], cam.dist[..., 2:3]
     return 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
 
 

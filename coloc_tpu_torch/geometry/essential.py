@@ -8,7 +8,9 @@ Convention: x_cam2 = R (x_cam1 - C), t = -R C.
 
 refine_relative_pose is Gauss-Newton over (R in SO(3), t on S^2). Its
 Jacobian comes from torch.func.jacfwd, as coloc_tpu's from jax.jacfwd, and
-its early exit is read on the host once a step (coloc_tpu: lax.while_loop).
+its early exit is coloc_tpu's lax.while_loop in done-mask form: a stopped
+loop changes nothing, and the host reads whether it stopped every
+`check_every` steps.
 The 7-point, 8-point and fundamental solvers wait for model F.
 """
 
@@ -89,14 +91,16 @@ def _weighted_sampson(R, t, x1, x2, weights):
     return torch.sqrt(sampson_distance_sq(hat3(t) @ R, x1, x2) + 1e-12) * weights
 
 
-def refine_relative_pose(R, t, x1, x2, weights, iters: int = 8
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+def refine_relative_pose(R, t, x1, x2, weights, iters: int = 8,
+                         check_every: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gauss-Newton on the essential manifold: weighted Sampson error over
     5 DoF (so planar scenes stay well-posed). Stops on a rejected step, a
-    step below 1e-6 or a relative improvement below 1e-7, as coloc_tpu."""
+    step below 1e-6 or a relative improvement below 1e-7, as coloc_tpu;
+    the host reads whether it stopped every `check_every` steps."""
     p0 = torch.zeros(5, dtype=R.dtype, device=R.device)
     eye5 = torch.eye(5, dtype=R.dtype, device=R.device)
-    for _ in range(iters):
+    active = torch.ones((), dtype=torch.bool, device=R.device)
+    for it in range(1, iters + 1):
         B = _tangent_basis(t)
 
         def resid(p):
@@ -115,12 +119,13 @@ def refine_relative_pose(R, t, x1, x2, weights, iters: int = 8
         t_new = t_new / (torch.linalg.norm(t_new) + 1e-12)
         c_old = (r ** 2).sum()
         c_new = (_weighted_sampson(R_new, t_new, x1, x2, weights) ** 2).sum()
-        better = c_new < c_old
+        better = active & (c_new < c_old)
         R = torch.where(better, R_new, R)
         t = torch.where(better, t_new, t)
         done = (~better | ((p * p).sum() < 1e-12)
                 | (c_old - c_new < 1e-7 * (c_old + 1e-20)))
-        if bool(done):
+        active = active & ~done
+        if it % check_every == 0 and it < iters and not bool(active):
             break
     return R, t
 

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "coloc_k2nn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "coloc_p3p": [_P, _P, _P, _P, _I, _I, _P],
     "coloc_ransac_rank": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P],
+    "coloc_ransac_rank_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "coloc_fast_nms": [_P, _P, _P, _I, _I, _F, _I, _P],
     "coloc_extract": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "coloc_fivept_front": [_P, _P, _P, _P, _P, _I, _I, _P],

@@ -12,6 +12,8 @@ as ops/hamming.pack_bits (bit 0 of word 0 first).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -58,6 +60,14 @@ def _make_tables(seed: int = _TABLE_SEED):
 _POOL, _TRIPLETS = _make_tables()
 
 
+@functools.lru_cache(maxsize=8)
+def _tables_on(device: torch.device):
+    """The pool (float32) and triplets (int64) on `device`: one
+    host-to-device copy per device, not one per frame."""
+    return (torch.from_numpy(_POOL).to(device),
+            torch.from_numpy(_TRIPLETS).to(device).to(torch.int64))
+
+
 def describe_from_patches(
     patches: torch.Tensor,     # (K, PH, PW) box-smoothed per-keypoint windows
     kp_x: torch.Tensor,        # (K,) level-local x
@@ -70,7 +80,7 @@ def describe_from_patches(
 ) -> torch.Tensor:
     """-> (K, 16) int32 packed 512-bit descriptors."""
     dev = patches.device
-    pool = torch.from_numpy(_POOL).to(dev)
+    pool, tri = _tables_on(dev)
     ca, sa = torch.cos(kp_angle)[:, None], torch.sin(kp_angle)[:, None]
     ox, oy = pool[None, :, 0], pool[None, :, 1]
     rx = ca * ox - sa * oy                                  # (K, P)
@@ -80,6 +90,5 @@ def describe_from_patches(
     vals = patch_ops.sample_nearest(
         patches, gx - col0.to(torch.float32)[:, None],
         gy - row0_local.to(torch.float32)[:, None])         # (K, P)
-    tri = torch.from_numpy(_TRIPLETS).to(dev).to(torch.int64)
     va, v1, v2 = vals[:, tri[:, 0]], vals[:, tri[:, 1]], vals[:, tri[:, 2]]
     return pack_bits((va - v1) ** 2 > (va - v2) ** 2)

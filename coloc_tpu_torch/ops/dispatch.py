@@ -8,12 +8,20 @@ CPU.
 
 Each kernel wrapper adds one to its launch count where it launches its
 kernel, and nowhere else, so a run can prove that its main path went
-through the kernels (chip_smoke.py reads the counts).
+through the kernels (chip_smoke.py reads the counts). A CUDA graph
+launches its kernels at each replay, not while it is captured: the counts
+taken during a capture are moved into the graph's record
+(`counted_capture`) and added at each replay (`count_replay`).
+
+`constant` gives a step its scalar constants without a host-to-device
+copy per call, which a captured step may not make.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+import functools
+from typing import Dict, Iterator
 
 import torch
 
@@ -76,3 +84,31 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
+
+
+@contextlib.contextmanager
+def counted_capture(record: Dict[str, int]) -> Iterator[Dict[str, int]]:
+    """Around the capture of a CUDA graph: what the wrappers count inside
+    is added to `record` (the graph's launches a replay) and taken off the
+    counts, since capturing launches nothing."""
+    before = dict(_LAUNCHES)
+    try:
+        yield record
+    finally:
+        for name in _LAUNCHES:
+            record[name] = record.get(name, 0) + _LAUNCHES[name] - before[name]
+            _LAUNCHES[name] = before[name]
+
+
+def count_replay(record: Dict[str, int]) -> None:
+    """One replay of a graph whose capture filled `record`."""
+    for name, n in record.items():
+        _LAUNCHES[name] += n
+
+
+@functools.lru_cache(maxsize=None)
+def constant(value, device: torch.device,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A 0-dim tensor holding `value` on `device`, made once per (value,
+    device, dtype). Read only: every caller shares it."""
+    return torch.tensor(value, dtype=dtype, device=device)

@@ -9,12 +9,20 @@ coloc_tpu.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from coloc_tpu_torch.ops import patches as patch_ops
 
 _RADIUS = 3  # 7x7 window
+
+
+@functools.lru_cache(maxsize=8)
+def _moment_tables_on(radius: int, device: torch.device):
+    # one host-to-device copy per radius and device, not one per frame
+    return moment_tables(radius, device)
 
 
 def moment_tables(radius: int = _RADIUS, device="cpu"):
@@ -37,7 +45,7 @@ def orientation_from_patches(
     row0_local: torch.Tensor,  #  level-local row)
 ) -> torch.Tensor:
     """Intensity-centroid angle per keypoint -> (K,) radians."""
-    offs_x, offs_y, wx, wy = moment_tables(device=patches.device)
+    offs_x, offs_y, wx, wy = _moment_tables_on(_RADIUS, patches.device)
     gx = torch.minimum(torch.clamp(torch.round(kp_x)[:, None] + offs_x, min=0.0),
                        (w_l - 1.0)[:, None])
     gy = torch.minimum(torch.clamp(torch.round(kp_y)[:, None] + offs_y, min=0.0),

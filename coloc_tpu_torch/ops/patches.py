@@ -86,8 +86,8 @@ def patch_origins(sp: StackedPyramid, kp_x: torch.Tensor, kp_y: torch.Tensor,
     |dx|, |dy| <= _MARGIN (after clamping to the level) falls inside
     [row0, row0 + PH) x [col0, col0 + PW)."""
     dev = kp_x.device
-    rb = torch.as_tensor(sp.row_base, device=dev)
-    hs = torch.as_tensor(sp.heights, device=dev)
+    rb = dispatch.constant(tuple(int(r) for r in sp.row_base), dev, torch.int32)
+    hs = dispatch.constant(tuple(int(h) for h in sp.heights), dev, torch.int32)
     xi = torch.round(kp_x).to(torch.int32)
     yi = torch.round(kp_y).to(torch.int32)
     h_l = hs[kp_level]

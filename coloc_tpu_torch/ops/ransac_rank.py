@@ -9,7 +9,8 @@ product form (no division):
   err < thr 4^j  <=>  (u^2 + v^2) < (thr 4^j) zc^2.
 
   ladder_rank        — the CUDA kernel csrc/ransac_rank.cu on a CUDA tensor,
-                       ladder_rank_plain on CPU
+                       ladder_rank_plain on CPU; operands with a leading
+                       drone axis are one launch (the grid's z)
   ladder_rank_plain  — the kernel's plain twin, (Hm, M) planes in memory
   p3p_ladder_rank    — the P3P entry (zmode "pos"): folds focal into the model
                        and observation operands, then ladder_rank
@@ -38,19 +39,20 @@ def ladder_rank_plain(eflat: torch.Tensor, xh: torch.Tensor, obs: torch.Tensor,
                       jmax: int = LADDER_JMAX,
                       n_rungs: int = LADDER_RUNGS) -> torch.Tensor:
     """Plain twin of csrc/ransac_rank.cu: eflat (Hm,12), xh (4,M), obs (2,M),
-    maskf (M,) -> (Hm,) float32."""
+    maskf (M,) -> (Hm,) float32; with a leading drone axis on every operand,
+    (D, Hm)."""
 
     def plane(c0):
-        acc = eflat[:, c0:c0 + 1] * xh[0:1, :]
+        acc = eflat[..., :, c0:c0 + 1] * xh[..., 0:1, :]
         for k in range(1, 4):
-            acc = acc + eflat[:, c0 + k:c0 + k + 1] * xh[k:k + 1, :]
-        return acc                                    # (Hm, M)
+            acc = acc + eflat[..., :, c0 + k:c0 + k + 1] * xh[..., k:k + 1, :]
+        return acc                                    # (..., Hm, M)
 
     A0, A1, Z = plane(0), plane(4), plane(8)
-    u = A0 - obs[0:1, :] * Z
-    v = A1 - obs[1:2, :] * Z
+    u = A0 - obs[..., 0:1, :] * Z
+    v = A1 - obs[..., 1:2, :] * Z
     s = u * u + v * v
-    msk = maskf[None, :]
+    msk = maskf[..., None, :]
     if zmode == "pos":
         zc = torch.clamp(Z, min=1e-9)
         t0 = zc * zc
@@ -63,29 +65,38 @@ def ladder_rank_plain(eflat: torch.Tensor, xh: torch.Tensor, obs: torch.Tensor,
     cnt = torch.zeros_like(s)
     for j in range(jmax - n_rungs + 1, jmax + 1):
         cnt = cnt + torch.where(s < (thr_sq * 4.0 ** j) * t0, 1.0, 0.0)
-    return (cnt * alive).sum(dim=1)
+    return (cnt * alive).sum(dim=-1)
 
 
 def _ladder_rank_cuda(eflat, xh, obs, maskf, thr_sq, zmode, jmax, n_rungs):
+    """One launch: coloc_ransac_rank for (Hm, 12) models, or
+    coloc_ransac_rank_batched for a leading drone axis (D, Hm, 12)."""
     dev = eflat.device
-    Hm, M = eflat.shape[0], xh.shape[1]
-    dispatch.check_operand(eflat, "eflat", torch.float32, (Hm, 12), dev)
-    dispatch.check_operand(xh, "xh", torch.float32, (4, M), dev)
-    dispatch.check_operand(obs, "obs", torch.float32, (2, M), dev)
-    dispatch.check_operand(maskf, "maskf", torch.float32, (M,), dev)
-    rank = torch.empty(Hm, dtype=torch.float32, device=dev)
-    _build.launch(
-        "coloc_ransac_rank", eflat.data_ptr(), xh.data_ptr(), obs.data_ptr(),
-        maskf.data_ptr(), rank.data_ptr(), Hm, M, float(thr_sq),
-        jmax - n_rungs + 1, n_rungs, _ZMODES[zmode], dev.index,
-        dispatch.stream_handle(dev))
+    lead = tuple(eflat.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"eflat: at most one drone axis, got {tuple(eflat.shape)}")
+    Hm, M = eflat.shape[-2], xh.shape[-1]
+    dispatch.check_operand(eflat, "eflat", torch.float32, lead + (Hm, 12), dev)
+    dispatch.check_operand(xh, "xh", torch.float32, lead + (4, M), dev)
+    dispatch.check_operand(obs, "obs", torch.float32, lead + (2, M), dev)
+    dispatch.check_operand(maskf, "maskf", torch.float32, lead + (M,), dev)
+    rank = torch.empty(lead + (Hm,), dtype=torch.float32, device=dev)
+    tail = (float(thr_sq), jmax - n_rungs + 1, n_rungs, _ZMODES[zmode], dev.index,
+            dispatch.stream_handle(dev))
+    ptrs = (eflat.data_ptr(), xh.data_ptr(), obs.data_ptr(), maskf.data_ptr(),
+            rank.data_ptr())
+    if lead:
+        _build.launch("coloc_ransac_rank_batched", *ptrs, lead[0], Hm, M, *tail)
+    else:
+        _build.launch("coloc_ransac_rank", *ptrs, Hm, M, *tail)
     dispatch.count_launch("ransac_rank")
     return rank
 
 
 def ladder_rank(eflat, xh, obs, maskf, thr_sq: float, zmode: str = "pos",
                 jmax: int = LADDER_JMAX, n_rungs: int = LADDER_RUNGS):
-    """(Hm,) float32 ladder rank per model (higher = better candidate)."""
+    """(Hm,) float32 ladder rank per model (higher = better candidate), or
+    (D, Hm) for operands with a leading drone axis."""
     if zmode not in _ZMODES:
         raise ValueError(f"zmode must be one of {sorted(_ZMODES)}: {zmode!r}")
     if dispatch.use_kernel(eflat):
@@ -99,18 +110,23 @@ def ladder_rank(eflat, xh, obs, maskf, thr_sq: float, zmode: str = "pos",
 def p3p_operands(flats, Xw, bearings, valid, focal):
     """The rank's operands for P3P models: (eflat (Hm,12), xh (4,M),
     obs (2,M), maskf (M,)), focal folded into the x/y model rows and the
-    observations (u = f A0 - (f ox) Z)."""
-    Hm = flats.shape[0]
-    R = flats[:, :9].reshape(Hm, 3, 3)
-    C = flats[:, 9:]
-    t = torch.einsum("mkd,md->mk", R, C)                 # (Hm, 3) = R_m C_m
-    E = torch.cat([R, t[:, :, None]], dim=2)             # (Hm, 3, 4)
-    f = torch.as_tensor(focal, dtype=torch.float32, device=flats.device)
-    E = E * torch.stack([f, f, torch.ones_like(f)])[None, :, None]
-    eflat = E.reshape(Hm, 12)
-    obs = bearings[:, :2] / torch.clamp(bearings[:, 2:3], min=1e-9)
-    obs = (obs * f).T                                    # (2, M)
-    xh = torch.cat([Xw, -torch.ones_like(Xw[:, :1])], dim=-1).T   # (4, M)
+    observations (u = f A0 - (f ox) Z). With a leading drone axis (flats
+    (D, Hm, 12), Xw and bearings (D, M, 3), valid (D, M), focal (D, 1))
+    each operand gains it. `focal` is a tensor or a number."""
+    lead = tuple(flats.shape[:-2])
+    Hm = flats.shape[-2]
+    R = flats[..., :9].reshape(lead + (Hm, 3, 3))
+    C = flats[..., 9:]
+    t = torch.einsum("...mkd,...md->...mk", R, C)        # (..., Hm, 3) = R_m C_m
+    E = torch.cat([R, t[..., None]], dim=-1)             # (..., Hm, 3, 4)
+    if not isinstance(focal, torch.Tensor):
+        focal = dispatch.constant(float(focal), flats.device)
+    f = focal.to(torch.float32)
+    E = E * torch.stack([f, f, torch.ones_like(f)], dim=-1)[..., None]
+    eflat = E.reshape(lead + (Hm, 12))
+    obs = bearings[..., :2] / torch.clamp(bearings[..., 2:3], min=1e-9)
+    obs = (obs * f[..., None]).transpose(-1, -2)         # (..., 2, M)
+    xh = torch.cat([Xw, -torch.ones_like(Xw[..., :1])], dim=-1).transpose(-1, -2)
     return eflat, xh, obs, valid.to(torch.float32)
 
 
@@ -118,7 +134,7 @@ def p3p_ladder_rank(flats, Xw, bearings, valid, focal, thr_sq: float,
                     jmax: int = LADDER_JMAX,
                     n_rungs: int = LADDER_RUNGS) -> torch.Tensor:
     """flats (Hm,12) R | C, Xw (M,3), bearings (M,3), valid (M,) bool ->
-    (Hm,) float32 ladder rank."""
+    (Hm,) float32 ladder rank; (D, Hm) with a leading drone axis."""
     eflat, xh, obs, maskf = p3p_operands(flats, Xw, bearings, valid, focal)
     return ladder_rank(eflat, xh, obs, maskf, thr_sq, "pos", jmax, n_rungs)
 
@@ -198,10 +214,11 @@ def epipolar_operands(Es, x1, x2, valid, s1_sq, s2_sq, thr_sq: float):
     O = (h2[:, :, None] * h1[:, None, :]).reshape(M, 9)
     P1 = (h1[:, :, None] * h1[:, None, :]).reshape(M, 9)
     P2 = (h2[:, :, None] * h2[:, None, :]).reshape(M, 9)
-    s1f = torch.as_tensor(s1_sq, dtype=torch.float32, device=Es.device)
-    s2f = torch.as_tensor(s2_sq, dtype=torch.float32, device=Es.device)
+    s1f, s2f = (s if isinstance(s, torch.Tensor)
+                else dispatch.constant(float(s), Es.device) for s in (s1_sq, s2_sq))
+    s1f, s2f = s1f.to(torch.float32), s2f.to(torch.float32)
     dmat = torch.cat([O, s1f * P1, s2f * P2], dim=1).T
-    c = (torch.tensor(thr_sq, dtype=torch.float32, device=Es.device)
+    c = (dispatch.constant(float(thr_sq), Es.device)
          / torch.clamp(s1f * s2f, min=1e-20)).reshape(1)
     return emat, dmat, valid.to(torch.float32), c
 

@@ -37,38 +37,40 @@ def _point_log_alpha0(cam: cam_ops.Camera) -> torch.Tensor:
 def _p3p_batch_residuals(flats: torch.Tensor, Xw: torch.Tensor,
                          bearings: torch.Tensor,
                          focal: torch.Tensor) -> torch.Tensor:
-    """All-models P3P reprojection residuals, (Hm, M): each camera-frame
-    coordinate plane is one (Hm, 4) x (4, M) product,
+    """All-models P3P reprojection residuals of D drones, (D, Hm, M): each
+    camera-frame coordinate plane is one (Hm, 4) x (4, M) product a drone,
       err = f^2 ((Xc_x - ox z)^2 + (Xc_y - oy z)^2) / z^2,
-    and err = 1e12 where z <= 0."""
-    Hm = flats.shape[0]
-    R = flats[:, :9].reshape(Hm, 3, 3)
-    C = flats[:, 9:]
-    t = torch.einsum("mkd,md->mk", R, C)               # (Hm, 3) = R_m C_m
-    E = torch.cat([R, t[:, :, None]], dim=2)           # (Hm, 3, 4)
-    Xh = torch.cat([Xw, -torch.ones_like(Xw[:, :1])], dim=-1).T   # (4, M)
-    A0 = E[:, 0] @ Xh                                  # Xc_x
-    A1 = E[:, 1] @ Xh                                  # Xc_y
-    Z = E[:, 2] @ Xh                                   # Xc_z
-    obs = bearings[:, :2] / torch.clamp(bearings[:, 2:3], min=1e-9)
-    u = A0 - obs[:, 0][None, :] * Z
-    v = A1 - obs[:, 1][None, :] * Z
+    and err = 1e12 where z <= 0. flats (D, Hm, 12), Xw and bearings (D, M,
+    3), focal (D, 1)."""
+    D, Hm = flats.shape[:2]
+    R = flats[..., :9].reshape(D, Hm, 3, 3)
+    C = flats[..., 9:]
+    t = torch.einsum("dmkc,dmc->dmk", R, C)            # (D, Hm, 3) = R_m C_m
+    E = torch.cat([R, t[..., None]], dim=-1)           # (D, Hm, 3, 4)
+    Xh = torch.cat([Xw, -torch.ones_like(Xw[..., :1])], dim=-1).transpose(1, 2)  # (D, 4, M)
+    A0 = E[:, :, 0] @ Xh                               # Xc_x
+    A1 = E[:, :, 1] @ Xh                               # Xc_y
+    Z = E[:, :, 2] @ Xh                                # Xc_z
+    obs = bearings[..., :2] / torch.clamp(bearings[..., 2:3], min=1e-9)
+    u = A0 - obs[:, None, :, 0] * Z
+    v = A1 - obs[:, None, :, 1] * Z
     zc = torch.clamp(Z, min=1e-9)
-    err = (u * u + v * v) / (zc * zc) * focal ** 2
+    err = (u * u + v * v) / (zc * zc) * focal[..., None] ** 2
     return torch.where(Z <= 0, 1e12, err)
 
 
 def _p3p_residuals(flat: torch.Tensor, Xw: torch.Tensor, bearings: torch.Tensor,
                    focal: torch.Tensor) -> torch.Tensor:
-    """One model's (M,) squared reprojection residual in pixels (the
-    angle-to-pixel form of the reference scorer); 1e12 behind the camera."""
-    R = flat[:9].reshape(3, 3)
-    C = flat[9:]
-    Xc = (Xw - C) @ R.T
-    proj = Xc / torch.clamp(Xc[:, 2:3], min=1e-9)
-    obs = bearings / torch.clamp(bearings[:, 2:3], min=1e-9)
-    err = ((proj[:, :2] - obs[:, :2]) ** 2).sum(dim=-1) * focal ** 2
-    return torch.where(Xc[:, 2] <= 0, 1e12, err)
+    """One model a drone: (D, M) squared reprojection residuals in pixels
+    (the angle-to-pixel form of the reference scorer); 1e12 behind the
+    camera. flat (D, 12), Xw and bearings (D, M, 3), focal (D, 1)."""
+    R = flat[:, :9].reshape(-1, 3, 3)
+    C = flat[:, 9:]
+    Xc = (Xw - C[:, None, :]) @ R.transpose(1, 2)
+    proj = Xc / torch.clamp(Xc[..., 2:3], min=1e-9)
+    obs = bearings / torch.clamp(bearings[..., 2:3], min=1e-9)
+    err = ((proj[..., :2] - obs[..., :2]) ** 2).sum(dim=-1) * focal ** 2
+    return torch.where(Xc[..., 2] <= 0, 1e12, err)
 
 
 def relative_pose_essential(
@@ -80,6 +82,7 @@ def relative_pose_essential(
     opts: RansacOptions,
     generator: Optional[torch.Generator] = None,
     sample_idx: Optional[torch.Tensor] = None,
+    check_every: int = 1,
 ) -> TwoViewGeometry:
     """Model 'E': five-point AC-RANSAC (256 samples x 30 candidates), the
     cheirality decomposition, Gauss-Newton on the essential manifold, a
@@ -89,7 +92,8 @@ def relative_pose_essential(
 
     The five-point solver (csrc/fivept_{front,dk,polish}.cu) and the
     epipolar pre-rank (csrc/epi_rank.cu) run as kernels on a CUDA device.
-    Residuals are in pixels, each side scaled by its own camera's focal."""
+    Residuals are in pixels, each side scaled by its own camera's focal.
+    The host reads the Gauss-Newton exit every `check_every` steps."""
     x1 = cam_ops.undistort(cam1, cam_ops.normalize(cam1, uv1))
     x2 = cam_ops.undistort(cam2, cam_ops.normalize(cam2, uv2))
     f1_sq = _mean_focal(cam1) ** 2
@@ -119,7 +123,8 @@ def relative_pose_essential(
     )
 
     R, t = ess.decompose_essential(res.model, x1, x2, res.inliers)
-    R, t = ess.refine_relative_pose(R, t, x1, x2, res.inliers.to(torch.float32))
+    R, t = ess.refine_relative_pose(R, t, x1, x2, res.inliers.to(torch.float32),
+                                    check_every=check_every)
     E_ref = ess.hat3(t) @ R
     refined_inl = (scorer(E_ref, x1, x2) < res.threshold_sq) & mask
     # a refinement that lands in a worse basin reverts model AND inliers
@@ -133,20 +138,32 @@ def relative_pose_essential(
 
 
 def absolute_pose_p3p(
-    X_world: torch.Tensor,   # (M, 3) landmark positions
-    uv: torch.Tensor,        # (M, 2) distorted pixel observations
-    mask: torch.Tensor,      # (M,) bool
-    cam: cam_ops.Camera,
+    X_world: torch.Tensor,   # (D, M, 3) landmark positions
+    uv: torch.Tensor,        # (D, M, 2) distorted pixel observations
+    mask: torch.Tensor,      # (D, M) bool
+    cam: cam_ops.Camera,     # K (D, 3, 3), dist (D, 3)
     opts: RansacOptions,
     generator: Optional[torch.Generator] = None,
-    sample_idx: Optional[torch.Tensor] = None,
+    sample_idx: Optional[torch.Tensor] = None,   # (D, B, 3)
+    uniforms: Optional[torch.Tensor] = None,     # (D, B, 3)
 ) -> Tuple[Pose, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """P3P RANSAC -> (pose, inliers (M,), n_inliers, success).
+    """P3P RANSAC of D drones -> (pose (D, ...), inliers (D, M), n_inliers
+    (D,), success (D,)); without the drone axis (mask (M,), K (3, 3)) the
+    one-drone call.
 
-    The P3P solver (csrc/p3p.cu) and the NFA pre-rank (csrc/ransac_rank.cu)
-    run as kernels on a CUDA device."""
+    The P3P solver (csrc/p3p.cu, all D x B samples in one launch) and the
+    NFA pre-rank (csrc/ransac_rank.cu, the drone axis in its grid) run as
+    kernels on a CUDA device."""
+    if mask.dim() == 1:
+        pose, inl, n, ok = absolute_pose_p3p(
+            X_world[None], uv[None], mask[None],
+            cam_ops.Camera(K=cam.K[None], dist=cam.dist[None]), opts, generator,
+            None if sample_idx is None else sample_idx[None],
+            None if uniforms is None else uniforms[None])
+        return Pose(R=pose.R[0], C=pose.C[0]), inl[0], n[0], ok[0]
+    cam = cam_ops.Camera(K=cam.K[:, None], dist=cam.dist[:, None])   # per drone
     b = cam_ops.bearing(cam, uv)
-    focal = _mean_focal(cam)
+    focal = _mean_focal(cam)                                        # (D, 1)
     thr_sq = opts.p3p_threshold ** 2
 
     def scorer(flat, Xw, bearings):
@@ -163,9 +180,10 @@ def absolute_pose_p3p(
         (X_world, b), mask, p3p_ops.p3p_flats_batch, scorer, batch_scorer,
         sample_size=3, num_hypotheses=opts.num_hypotheses,
         threshold_sq=thr_sq, inlier_multiple=opts.inlier_multiple,
-        scoring=opts.scoring, log_alpha0=_point_log_alpha0(cam),
+        scoring=opts.scoring, log_alpha0=_point_log_alpha0(cam)[..., None],
         error_dim=2.0, rank_fn=rank_fn, generator=generator,
-        sample_idx=sample_idx,
+        sample_idx=sample_idx, uniforms=uniforms,
     )
-    pose = Pose(R=res.model[:9].reshape(3, 3), C=res.model[9:])
+    D = mask.shape[0]
+    pose = Pose(R=res.model[:, :9].reshape(D, 3, 3), C=res.model[:, 9:])
     return pose, res.inliers, res.n_inliers, res.success

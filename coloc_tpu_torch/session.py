@@ -7,25 +7,44 @@ bank.
 
   intra_all_device_step — the body that coloc_tpu's intra_pose_all, run and
       run_chunked call every frame: a batched frontend over D drones, one
-      2-NN of all queries against the resident map bank, per-drone
-      localization, landmark support counts, the filter bank update
+      2-NN of all queries against the resident map bank, the drones'
+      localization over a leading drone axis (one P3P launch of D x 256
+      samples, one B3 launch, one LM with a done mask per drone), landmark
+      support counts, the filter bank update
   ColocSession          — init_map (the D = 2 model-E bootstrap),
-      intra_pose_all and run around that step
+      intra_pose_all, intra_pose (the same body at D = 1), run, and
+      intra_pose_chunk / run_chunked, which on the card replay the step as
+      a captured CUDA graph (coloc_tpu's lax.scan over the jitted step)
 
 The host drives the events; tensors stay on the session's device, which is
-cuda:0 unless the caller asks for another. RANSAC draws come from the
-session's torch.Generator (seeded by `seed`), or are injected with
-`sample_idx` (how the parity tests replay coloc_tpu's jax.random draws).
+cuda:0 unless the caller asks for another. RANSAC draws are uniforms from
+the session's torch.Generator (seeded by `seed`), turned into minimal
+samples on the device; `sample_idx` injects the samples instead (how the
+parity tests replay coloc_tpu's jax.random draws).
+
+The captured step (_StepGraphs): the step's tensors live in static
+buffers, its RANSAC uniforms are drawn outside the graph into one, the
+carried state (filter bank, landmark support, frame) is copied in before a
+chunk and out after it, and the graphs are captured again when the map
+changes. The pose LM's exit is read once a frame: a head graph runs the
+step through LM_GRAPH_STEPS iterations, a middle graph runs LM_GRAPH_STEPS
+more while the host sees a lane still active, a tail graph finishes the
+frame (the covariance, support, the Kalman update). Any masked iteration
+changes nothing, so the graphs give the eager step's bits. On the CPU the
+chunk runs that step eagerly frame by frame.
 
 Not ported yet, each raising NotImplementedError where it is asked for:
 models F and H and the D > 2 reconstruction (ROADMAP A6), inter-drone
-fusion (A7), the map lifecycle (A8), logging, checkpoints, intra_pose and
-the chunked stepping (A5).
+fusion (A7), update_map and the map lifecycle (A6, A8), logging,
+checkpoints and the stage profiler (A5b), the AKAZE frontend's captured
+chunk (A5a-3).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import ctypes
+import time
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,10 +56,89 @@ from coloc_tpu_torch.fusion import kalman
 from coloc_tpu_torch.geometry import so3
 from coloc_tpu_torch.geometry.camera import Camera
 from coloc_tpu_torch.ops import dispatch, hamming
-from coloc_tpu_torch.sfm import reconstruct
-from coloc_tpu_torch.sfm.localize import localize_image
+from coloc_tpu_torch.sfm import ba, localize, reconstruct
 from coloc_tpu_torch.types import (Features, MapDB, Matches, Pose, PoseWithCov,
                                    TwoViewGeometry)
+
+# LM iterations between two host reads of a loop's exit, chosen by
+# measurement (scripts/prof_torch_loop_exit.py, PERF.md §6): the eager pose
+# LM and the bootstrap's BA and Gauss-Newton read theirs every iteration (a
+# read costs less than a masked iteration's ~100 launches); the captured
+# step's head and middle graphs run LM_GRAPH_STEPS iterations each (the
+# pose LM mostly stops at its third)
+LM_CHECK_EVERY = 1
+BOOTSTRAP_CHECK_EVERY = 1
+LM_GRAPH_STEPS = 3
+
+
+class _Frame(NamedTuple):
+    """What a frame's LM and tail read of its head: D drones' 2D-3D
+    correspondences, the RANSAC result, the map matches."""
+
+    X: torch.Tensor          # (D, K, 3)
+    uv: torch.Tensor         # (D, K, 2)
+    inliers: torch.Tensor    # (D, K) bool, RANSAC's
+    n_inliers: torch.Tensor  # (D,) int32
+    success: torch.Tensor    # (D,) bool
+    idx: torch.Tensor        # (D, K) int32 map slot, -1 if rejected
+    matched: torch.Tensor    # (D, K) bool
+
+
+def _step_head(cfg: ColocConfig, images, mapdb: MapDB, bank: hamming.Bank, Ks, dists,
+               generator=None, sample_idx=None, uniforms=None
+               ) -> Tuple[_Frame, ba.PoseLM]:
+    """Detect, match and P3P-RANSAC D drones' frames (D, H, W) -> the frame
+    and the pose LM's initial state."""
+    D = images.shape[0]
+    kp = cfg.detector.max_keypoints
+    feats = detect_and_describe_batch(images, cfg.detector)
+    qv = feats.valid.reshape(-1)
+    idx, best, second = hamming.hamming_2nn_bank(
+        feats.desc.reshape(D * kp, -1), qv, bank)
+    m = matching._accept(idx, best, second, qv, cfg.matcher,
+                         cfg.matcher.margin_threshold)
+    mm = Matches(*(t.reshape(D, kp) for t in m))
+    X, uv, corr = localize.correspondences(feats, mm, mapdb)
+    pose0, inl, n_inl, ok = robust.absolute_pose_p3p(
+        X, uv, corr, Camera(K=Ks, dist=dists), cfg.ransac, generator=generator,
+        sample_idx=sample_idx, uniforms=uniforms)
+    return (_Frame(X, uv, inl, n_inl, ok, mm.idx, mm.mask),
+            ba.pose_lm_init(pose0.R, pose0.C))
+
+
+def _step_lm(cfg: ColocConfig, frame: _Frame, lm: ba.PoseLM, Ks, dists, n: int) -> ba.PoseLM:
+    return ba.pose_lm_steps(lm, frame.X, frame.uv, frame.inliers, Ks, dists,
+                            cfg.refiner, n)
+
+
+def _step_tail(cfg: ColocConfig, frame: _Frame, lm: ba.PoseLM, Ks, dists, L: int
+               ) -> Tuple[PoseWithCov, torch.Tensor]:
+    """The LM's covariance and rmse -> (PoseWithCov (D, ...), sup_inc (L,)
+    int32): one count per (drone, landmark) refinement inlier of a drone
+    whose localization succeeded; non-hits go to slot L, dropped."""
+    res = ba.pose_lm_finish(lm, frame.X, frame.uv, frame.inliers, Ks, dists,
+                            cfg.refiner)
+    pwcs = localize.finish(res, frame.n_inliers, frame.success)
+    hit = frame.inliers & frame.matched & pwcs.success[:, None]
+    slot = torch.where(hit, frame.idx, L).reshape(-1).to(torch.int64)
+    sup_inc = torch.zeros(L + 1, dtype=torch.int32, device=slot.device)
+    sup_inc = sup_inc.scatter_add_(0, slot, torch.ones_like(slot, dtype=torch.int32))[:L]
+    return pwcs, sup_inc
+
+
+def _filter_all(cfg: ColocConfig, pwcs: PoseWithCov, fb: kalman.FilterBank):
+    """-> (fb', filtered, gate distances, rejected, eulers) of every drone."""
+    zs = kalman.fill_measurement(pwcs.pose)
+    fb, filtered, dist_g, rej = kalman.update_all(
+        fb, zs, pwcs.cov[:, 3:6, 3:6], pwcs.rmse, pwcs.success, cfg.filter)
+    return fb, filtered, dist_g, rej, so3.rot_to_euler(pwcs.pose.R)
+
+
+def _support(lm_support, lm_last_seen, sup_inc, frame):
+    """Landmark support after a frame: the career inlier count and the
+    frame (an int or a () int32 tensor) of the last inlier."""
+    return (lm_support + sup_inc,
+            torch.where(sup_inc > 0, frame, lm_last_seen).to(torch.int32))
 
 
 def intra_all_device_step(
@@ -51,53 +149,178 @@ def intra_all_device_step(
     Ks: torch.Tensor,                     # (D, 3, 3)
     dists: torch.Tensor,                  # (D, 3)
     fb: kalman.FilterBank,
-    generators: Optional[Sequence[torch.Generator]] = None,
+    generator: Optional[torch.Generator] = None,
     sample_idx: Optional[torch.Tensor] = None,   # (D, B, 3)
+    uniforms: Optional[torch.Tensor] = None,     # (D, B, 3)
+    check_every: int = LM_CHECK_EVERY,
 ):
     """All drones' frame step -> (pwcs, fb', filtered, gate_dist, rej,
     eulers, sup_inc), each with a leading drone axis except sup_inc, the
     (L,) int32 count of drones that used each landmark as a refinement
-    inlier this frame. `generators[d]` draws drone d's RANSAC samples;
-    `sample_idx[d]` injects them instead (parity tests)."""
-    D = images.shape[0]
-    kp = cfg.detector.max_keypoints
-    feats = detect_and_describe_batch(images, cfg.detector)
-    qv = feats.valid.reshape(-1)
-    idx, best, second = hamming.hamming_2nn_bank(
-        feats.desc.reshape(D * kp, -1), qv, bank)
-    m = matching._accept(idx, best, second, qv, cfg.matcher,
-                         cfg.matcher.margin_threshold)
-    mm = Matches(*(t.reshape(D, kp) for t in m))
-
-    pwcs, inls = [], []
-    for d in range(D):
-        pwc, inl = localize_image(
-            Features(*(t[d] for t in feats)), Matches(*(t[d] for t in mm)),
-            mapdb, Camera(K=Ks[d], dist=dists[d]), cfg.ransac, cfg.refiner,
-            generator=None if generators is None else generators[d],
-            sample_idx=None if sample_idx is None else sample_idx[d])
-        pwcs.append(pwc)
-        inls.append(inl)
-    pwcs = PoseWithCov(
-        pose=Pose(R=torch.stack([p.pose.R for p in pwcs]),
-                  C=torch.stack([p.pose.C for p in pwcs])),
-        **{f: torch.stack([getattr(p, f) for p in pwcs])
-           for f in ("cov", "rmse", "n_tracks", "success")})
-    inls = torch.stack(inls)
-
-    # landmark support: one count per (drone, landmark) refinement inlier of
-    # a drone whose localization succeeded; non-hits go to slot L, dropped
-    hit = inls & mm.mask & pwcs.success[:, None]
-    L = mapdb.X.shape[0]
-    slot = torch.where(hit, mm.idx, L).reshape(-1).to(torch.int64)
-    sup_inc = torch.zeros(L + 1, dtype=torch.int32, device=slot.device)
-    sup_inc = sup_inc.scatter_add_(0, slot, torch.ones_like(slot, dtype=torch.int32))[:L]
-
-    zs = kalman.fill_measurement(pwcs.pose)
-    fb, filtered, dist_g, rej = kalman.update_all(
-        fb, zs, pwcs.cov[:, 3:6, 3:6], pwcs.rmse, pwcs.success, cfg.filter)
-    eulers = so3.rot_to_euler(pwcs.pose.R)
+    inlier this frame. `generator` draws the RANSAC samples, or `uniforms`
+    are the uniforms to draw them with; `sample_idx` injects them instead
+    (parity tests). The host reads the pose LM's exit every `check_every`
+    iterations; check_every = refiner.max_iterations reads nothing."""
+    frame, lm = _step_head(cfg, images, mapdb, bank, Ks, dists, generator,
+                           sample_idx, uniforms)
+    lm = ba.pose_lm_run(lm, frame.X, frame.uv, frame.inliers, Ks, dists,
+                        cfg.refiner, check_every)
+    pwcs, sup_inc = _step_tail(cfg, frame, lm, Ks, dists, mapdb.X.shape[0])
+    fb, filtered, dist_g, rej, eulers = _filter_all(cfg, pwcs, fb)
     return pwcs, fb, filtered, dist_g, rej, eulers, sup_inc
+
+
+class _ChunkOut(NamedTuple):
+    """A chunk's per-frame outputs, (F, D, ...) each."""
+
+    R: torch.Tensor         # filtered rotation
+    C: torch.Tensor         # filtered centre
+    cov: torch.Tensor
+    rmse: torch.Tensor
+    n_tracks: torch.Tensor
+    success: torch.Tensor
+    rejected: torch.Tensor
+
+
+def _chunk_out(pwcs: PoseWithCov, filtered: Pose, rej) -> _ChunkOut:
+    return _ChunkOut(filtered.R, filtered.C, pwcs.cov, pwcs.rmse, pwcs.n_tracks,
+                     pwcs.success, rej)
+
+
+class _StepGraphs:
+    """The frame step of a session captured as CUDA graphs over static
+    buffers, for the session's current map: a head graph (the step through
+    LM_GRAPH_STEPS LM iterations), a middle graph (LM_GRAPH_STEPS more,
+    replayed while the host reads a lane still active) and a tail graph
+    (the covariance, support and Kalman update, the carried state written
+    in place). `inject`: the static draws are minimal samples (int64 (D,
+    B, 3)) instead of uniforms."""
+
+    def __init__(self, sess: "ColocSession", inject: bool = False):
+        cfg = sess.config
+        dev = sess.device
+        D, B = cfg.num_drones, cfg.ransac.num_hypotheses
+        self.cfg, self.inject = cfg, inject
+        self.lm_steps = LM_GRAPH_STEPS        # LM iterations a head or middle graph
+        self.mapdb, self.bank = sess.mapdb, sess._map_bank()
+        self.Ks, self.dists = sess.Ks, sess.dists
+        self.images = torch.zeros((D, cfg.detector.height, cfg.detector.width), device=dev)
+        self.draws = torch.zeros((D, B, 3), device=dev,
+                                 dtype=torch.int64 if inject else torch.float32)
+        self.fb = kalman.FilterBank(*(t.clone() for t in sess.filter_bank))
+        self.sup = sess.lm_support.clone()
+        self.last = sess.lm_last_seen.clone()
+        self.frame = torch.zeros((), dtype=torch.int32, device=dev)
+        self.host_reads = 0                    # host reads of the LM exit so far
+        t0 = time.perf_counter()
+        try:
+            # the head's outputs are the static state the middle and the
+            # tail graphs read
+            head, (self.frame_t, self.lm), rec_h = self._graph(self._head)
+            middle, _, rec_m = self._graph(self._middle)
+            tail, self.out, rec_t = self._graph(self._tail)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"capturing the frame step as a CUDA graph failed: {e}") from e
+        self.graphs, self.records = (head, middle, tail), (rec_h, rec_m, rec_t)
+        torch.cuda.synchronize()
+        self.capture_seconds = time.perf_counter() - t0
+
+    def _head(self):
+        kw = {"sample_idx" if self.inject else "uniforms": self.draws}
+        frame, lm = _step_head(self.cfg, self.images, self.mapdb, self.bank, self.Ks,
+                               self.dists, **kw)
+        return frame, _step_lm(self.cfg, frame, lm, self.Ks, self.dists, self.lm_steps)
+
+    def _middle(self):
+        lm = _step_lm(self.cfg, self.frame_t, self.lm, self.Ks, self.dists, self.lm_steps)
+        for old, new in zip(self.lm, lm):
+            old.copy_(new)
+
+    def _tail(self) -> _ChunkOut:
+        pwcs, sup_inc = _step_tail(self.cfg, self.frame_t, self.lm, self.Ks, self.dists,
+                                   self.mapdb.X.shape[0])
+        fb, filtered, _, rej, _ = _filter_all(self.cfg, pwcs, self.fb)
+        sup, last = _support(self.sup, self.last, sup_inc, self.frame)
+        for old, new in zip(self.fb, fb):
+            old.copy_(new)
+        self.sup.copy_(sup)
+        self.last.copy_(last)
+        self.frame.add_(1)
+        return _chunk_out(pwcs, filtered, rej)
+
+    @staticmethod
+    def _graph(fn, warmup: int = 2):
+        """Warm fn up on a side stream (caches, library handles), then
+        capture it. -> (graph, fn's output, its launch record)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        try:        # kept, so that node_count can read it
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+        except TypeError:
+            graph = torch.cuda.CUDAGraph()
+        record: Dict[str, int] = {}
+        with dispatch.counted_capture(record), torch.cuda.graph(graph):
+            out = fn()
+        if hasattr(graph, "instantiate"):
+            graph.instantiate()
+        return graph, out, record
+
+    def load(self, sess: "ColocSession") -> None:
+        """Copy the session's carried state into the static buffers."""
+        for old, new in zip(self.fb, sess.filter_bank):
+            old.copy_(new)
+        self.sup.copy_(sess.lm_support)
+        self.last.copy_(sess.lm_last_seen)
+        self.frame.fill_(sess.frame)
+
+    def replay(self, images, draws) -> _ChunkOut:
+        """One frame: images (D, H, W) and its draws -> the frame's
+        outputs, copied out of the static buffers."""
+        self.images.copy_(images)
+        self.draws.copy_(draws)
+        head, middle, tail = self.graphs
+        head.replay()
+        dispatch.count_replay(self.records[0])
+        its = self.lm_steps
+        while its < self.cfg.refiner.max_iterations:
+            self.host_reads += 1
+            if not bool(self.lm.active.any()):
+                break
+            middle.replay()
+            dispatch.count_replay(self.records[1])
+            its += self.lm_steps
+        tail.replay()
+        dispatch.count_replay(self.records[2])
+        return _ChunkOut(*(t.clone() for t in self.out))
+
+    def node_count(self) -> Optional[int]:
+        """Nodes of the head and tail graphs (a frame replays each once),
+        from the driver's cuGraphGetNodes; None where this PyTorch does not
+        hand out the raw graph."""
+        return graph_nodes(self.graphs[0], self.graphs[2])
+
+
+def graph_nodes(*graphs) -> Optional[int]:
+    """Nodes of captured torch.cuda.CUDAGraphs (made with keep_graph=True),
+    from the driver's cuGraphGetNodes; None where this PyTorch does not hand
+    out the raw graph."""
+    total = 0
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+        for g in graphs:
+            n = ctypes.c_size_t(0)
+            if lib.cuGraphGetNodes(ctypes.c_void_p(g.raw_cuda_graph()), None,
+                                   ctypes.byref(n)) != 0:
+                return None
+            total += n.value
+    except (AttributeError, OSError, RuntimeError):
+        return None
+    return total
 
 
 class ColocSession:
@@ -144,11 +367,18 @@ class ColocSession:
         self.lm_last_seen: Optional[torch.Tensor] = None
         self._bank = None
         self._bank_src = None
+        self._graphs: Optional[_StepGraphs] = None   # intra_pose_chunk's
 
     def _image(self, image) -> torch.Tensor:
         if isinstance(image, torch.Tensor):
             return image.to(device=self.device, dtype=torch.float32)
         return torch.as_tensor(np.asarray(image, np.float32), device=self.device)
+
+    def _draw(self, drones: int) -> torch.Tensor:
+        """A frame's RANSAC uniforms, (drones, B, 3), from the session's
+        generator."""
+        return torch.rand((drones, self.config.ransac.num_hypotheses, 3),
+                          generator=self.generator, device=self.device)
 
     def detect(self, image) -> Features:
         return detect_and_describe(self._image(image), self.config.detector)
@@ -159,7 +389,8 @@ class ColocSession:
         if model == "E":
             return robust.relative_pose_essential(
                 uv1, uv2, mask, cam1, cam2, self.config.ransac,
-                generator=self.generator, sample_idx=sample_idx)
+                generator=self.generator, sample_idx=sample_idx,
+                check_every=BOOTSTRAP_CHECK_EVERY)
         if model in ("F", "H"):
             raise NotImplementedError(
                 f"model {model!r}: the {'fundamental' if model == 'F' else 'homography'}"
@@ -191,7 +422,8 @@ class ColocSession:
             self.cams[0], self.cams[1], num_landmarks=cfg.max_landmarks)
         scene, ba = reconstruct.refine_scene(
             scene, self.Ks[:2], self.dists[:2], cfg.refiner,
-            fix_pose=torch.tensor([True, False], device=self.device))
+            fix_pose=torch.tensor([True, False], device=self.device),
+            check_every=BOOTSTRAP_CHECK_EVERY)
         if int(scene.X_valid.sum()) < 8:
             return False
         self.scene = scene
@@ -220,6 +452,22 @@ class ColocSession:
             self.lm_last_seen = torch.where(
                 self.mapdb.valid, self.frame, -1).to(torch.int32)
 
+    def _finish_frame(self, pwcs, fb, filtered, rej, sup_inc) -> Dict[int, PoseWithCov]:
+        """Carry a step's state into the session -> dict drone ->
+        PoseWithCov (the filtered pose)."""
+        self.filter_bank = fb
+        self.last_rejected = rej
+        self.lm_support, self.lm_last_seen = _support(
+            self.lm_support, self.lm_last_seen, sup_inc, self.frame)
+        out = {}
+        for d in range(self.config.num_drones):
+            out[d] = PoseWithCov(
+                pose=Pose(R=filtered.R[d], C=filtered.C[d]), cov=pwcs.cov[d],
+                rmse=pwcs.rmse[d], n_tracks=pwcs.n_tracks[d],
+                success=pwcs.success[d])
+            self.last_pose[d] = out[d]
+        return out
+
     def intra_pose_all(self, images, sample_idx: Optional[torch.Tensor] = None
                        ) -> Dict[int, PoseWithCov]:
         """Localize every drone in one step: dict drone -> PoseWithCov with
@@ -230,21 +478,123 @@ class ColocSession:
         self._ensure_support()
         pwcs, fb, filtered, _, rej, _, sup_inc = intra_all_device_step(
             self.config, imgs, self.mapdb, self._map_bank(), self.Ks, self.dists,
-            self.filter_bank, generators=[self.generator] * D,
-            sample_idx=sample_idx)
-        self.filter_bank = fb
-        self.last_rejected = rej
-        self.lm_support = self.lm_support + sup_inc
-        self.lm_last_seen = torch.where(sup_inc > 0, self.frame,
-                                        self.lm_last_seen).to(torch.int32)
-        out = {}
+            self.filter_bank, sample_idx=sample_idx,
+            uniforms=None if sample_idx is not None else self._draw(D))
+        return self._finish_frame(pwcs, fb, filtered, rej, sup_inc)
+
+    def intra_pose(self, drone: int, image,
+                   sample_idx: Optional[torch.Tensor] = None) -> PoseWithCov:
+        """One drone's frame (intraPoseEstimator, coloc.hpp:201-271): the
+        step's body at D = 1, then kalman.update of that drone's filter.
+        Returns the filtered pose with the covariance, rmse, n_tracks and
+        success. `sample_idx` (256, 3): injected P3P draws."""
+        cfg = self.config
+        self._ensure_support()
+        d = slice(drone, drone + 1)
+        frame, lm = _step_head(
+            cfg, self._image(image)[None], self.mapdb, self._map_bank(), self.Ks[d],
+            self.dists[d], sample_idx=None if sample_idx is None else sample_idx[None],
+            uniforms=None if sample_idx is not None else self._draw(1))
+        lm = ba.pose_lm_run(lm, frame.X, frame.uv, frame.inliers, self.Ks[d],
+                            self.dists[d], cfg.refiner, LM_CHECK_EVERY)
+        pwcs, sup_inc = _step_tail(cfg, frame, lm, self.Ks[d], self.dists[d],
+                                   self.mapdb.X.shape[0])
+        self.filter_bank, filtered, _, _ = kalman.update(
+            self.filter_bank, drone, kalman.fill_measurement(pwcs.pose)[0],
+            pwcs.cov[0, 3:6, 3:6], pwcs.rmse[0], pwcs.success[0], cfg.filter)
+        self.lm_support, self.lm_last_seen = _support(
+            self.lm_support, self.lm_last_seen, sup_inc, self.frame)
+        result = PoseWithCov(pose=filtered, cov=pwcs.cov[0], rmse=pwcs.rmse[0],
+                             n_tracks=pwcs.n_tracks[0], success=pwcs.success[0])
+        self.last_pose[drone] = result
+        return result
+
+    def _captures(self) -> bool:
+        """Whether intra_pose_chunk replays a captured graph: on the card."""
+        return self.device.type == "cuda"
+
+    def _step_graphs(self, inject: bool) -> _StepGraphs:
+        """The captured step for the current map and draw kind, captured
+        again when the map (and so its bank) changed."""
+        g = self._graphs
+        if g is None or g.mapdb is not self.mapdb or g.inject != inject:
+            self._graphs = None    # free the old graphs' memory first
+            self._graphs = _StepGraphs(self, inject)
+        return self._graphs
+
+    def intra_pose_chunk(self, images, sample_idx: Optional[torch.Tensor] = None
+                         ) -> Dict[int, list]:
+        """An (F, D, H, W) chunk of frames -> dict drone -> [PoseWithCov per
+        frame] (coloc_tpu's lax.scan over the all-drones step, the filter
+        bank and landmark support carried from frame to frame); self.frame
+        advances by F. On a CUDA device the step replays as a captured CUDA
+        graph (a capture that fails raises); on the CPU it runs eagerly
+        frame by frame. `sample_idx` (F, D, 256, 3): injected P3P draws."""
+        cfg = self.config
+        D = cfg.num_drones
+        imgs = self._image(images)
+        F = imgs.shape[0]
+        self._ensure_support()
+        frame0 = self.frame
+        if not self._captures():    # the plain path: eager, frame by frame
+            outs = []
+            for f in range(F):
+                self.frame = frame0 + f
+                pwcs, fb, filtered, _, rej, _, sup_inc = intra_all_device_step(
+                    cfg, imgs[f], self.mapdb, self._map_bank(), self.Ks, self.dists,
+                    self.filter_bank, sample_idx=None if sample_idx is None else sample_idx[f],
+                    uniforms=None if sample_idx is not None else self._draw(D))
+                self._finish_frame(pwcs, fb, filtered, rej, sup_inc)
+                outs.append(_chunk_out(pwcs, filtered, rej))
+            res = _ChunkOut(*(torch.stack(v) for v in zip(*outs)))
+        else:
+            if cfg.detector.backend == "akaze":
+                raise NotImplementedError(
+                    "the AKAZE frontend's step is not captured yet: its per-frame "
+                    "host-to-device copies (akaze.py, ops/mldb.py) would break the "
+                    "graph (ROADMAP A5a-3)")
+            g = self._step_graphs(sample_idx is not None)
+            draws = (sample_idx.to(device=self.device, dtype=torch.int64)
+                     if sample_idx is not None
+                     else torch.stack([self._draw(D) for _ in range(F)]))
+            g.load(self)
+            res = _ChunkOut(*(torch.stack(v) for v in zip(*(
+                g.replay(imgs[f], draws[f]) for f in range(F)))))
+            self.filter_bank = kalman.FilterBank(*(t.clone() for t in g.fb))
+            self.lm_support, self.lm_last_seen = g.sup.clone(), g.last.clone()
+            self.last_rejected = res.rejected[-1]
+        out = {d: [] for d in range(D)}
+        for f in range(F):
+            for d in range(D):
+                out[d].append(PoseWithCov(
+                    pose=Pose(R=res.R[f, d], C=res.C[f, d]), cov=res.cov[f, d],
+                    rmse=res.rmse[f, d], n_tracks=res.n_tracks[f, d],
+                    success=res.success[f, d]))
         for d in range(D):
-            out[d] = PoseWithCov(
-                pose=Pose(R=filtered.R[d], C=filtered.C[d]), cov=pwcs.cov[d],
-                rmse=pwcs.rmse[d], n_tracks=pwcs.n_tracks[d],
-                success=pwcs.success[d])
-            self.last_pose[d] = out[d]
+            self.last_pose[d] = out[d][-1]
+        self.frame = frame0 + F
         return out
+
+    @staticmethod
+    def _refuse(inter_every: int, num_drones: int, lifecycle: Dict[str, object]) -> None:
+        """Raise for the options whose paths are not ported yet."""
+        if inter_every and num_drones >= 2:
+            raise NotImplementedError(
+                f"inter_every={inter_every}: inter-drone relative pose and "
+                "fusion are not ported yet (ROADMAP A7); pass inter_every=0")
+        asked = [k for k, v in lifecycle.items() if v]
+        if asked:
+            raise NotImplementedError(
+                f"{', '.join(asked)}: update_map and the map lifecycle are not "
+                "ported yet (ROADMAP A6, A8)")
+
+    def _bootstrap(self, frames: Dict[int, list], num_frames: int) -> int:
+        """init_map on the first frames that succeed -> the next frame."""
+        f = 0
+        while not self.map_ready and f < num_frames:
+            self.init_map({d: frames[d][f] for d in range(self.config.num_drones)})
+            f += 1
+        return f
 
     def run(self, frames: Dict[int, list], inter_every: int = 10,
             update_map_every: int = 0, auto_update_map: bool = False,
@@ -256,25 +606,14 @@ class ColocSession:
         per-drone lists of filtered poses. The options of paths not ported
         yet raise rather than being skipped."""
         cfg = self.config
-        if inter_every and cfg.num_drones >= 2:
-            raise NotImplementedError(
-                f"inter_every={inter_every}: inter-drone relative pose and "
-                "fusion are not ported yet (ROADMAP A7); pass inter_every=0")
-        lifecycle = {"update_map_every": update_map_every,
-                     "auto_update_map": auto_update_map,
-                     "extend_map_every": extend_map_every,
-                     "cull_map_every": cull_map_every}
-        asked = [k for k, v in lifecycle.items() if v]
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)}: the map lifecycle is not ported yet "
-                "(ROADMAP A8)")
+        self._refuse(inter_every, cfg.num_drones,
+                     {"update_map_every": update_map_every,
+                      "auto_update_map": auto_update_map,
+                      "extend_map_every": extend_map_every,
+                      "cull_map_every": cull_map_every})
         num_frames = min(len(v) for v in frames.values())
         out = {d: [] for d in range(cfg.num_drones)}
-        f = 0
-        while not self.map_ready and f < num_frames:
-            self.init_map({d: frames[d][f] for d in range(cfg.num_drones)})
-            f += 1
+        f = self._bootstrap(frames, num_frames)
         if not self.map_ready:
             return out
         for frame_idx in range(f, num_frames):
@@ -283,4 +622,41 @@ class ColocSession:
                                        for d in range(cfg.num_drones)})
             for d in range(cfg.num_drones):
                 out[d].append(res[d])
+        return out
+
+    def run_chunked(self, frames: Dict[int, list], chunk: int = 16,
+                    inter_every: int = 0, update_map_every: int = 0,
+                    auto_update_map: bool = False,
+                    auto_update_patience: int = 3) -> Dict[int, list]:
+        """mainThread with chunked stepping (coloc_tpu's run_chunked):
+        bootstrap, then frames in (chunk, D, H, W) blocks through
+        intra_pose_chunk, the last partial chunk frame by frame through
+        intra_pose_all so no frame is dropped. Returns the per-drone lists
+        of filtered poses. The options of paths not ported yet raise."""
+        cfg = self.config
+        D = cfg.num_drones
+        self._refuse(inter_every, D, {"update_map_every": update_map_every,
+                                      "auto_update_map": auto_update_map})
+        num_frames = min(len(v) for v in frames.values())
+        out = {d: [] for d in range(D)}
+        f = self._bootstrap(frames, num_frames)
+        if not self.map_ready:
+            return out
+        while f < num_frames:
+            n = min(chunk, num_frames - f)
+            if n == chunk:
+                block = torch.stack([torch.stack([self._image(frames[d][f + i])
+                                                  for d in range(D)]) for i in range(n)])
+                self.frame = f
+                res = self.intra_pose_chunk(block)
+            else:
+                res = {d: [] for d in range(D)}
+                for i in range(n):
+                    self.frame = f + i
+                    r = self.intra_pose_all({d: frames[d][f + i] for d in range(D)})
+                    for d in range(D):
+                        res[d].append(r[d])
+            for d in range(D):
+                out[d].extend(res[d])
+            f += n
         return out

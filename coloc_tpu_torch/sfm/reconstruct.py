@@ -105,16 +105,17 @@ def two_view_scene(
 
 def refine_scene(scene: Scene, cams_K: torch.Tensor, cams_dist: torch.Tensor,
                  opts: RefinerOptions, fix_pose: torch.Tensor,
-                 cov_view: int = 1, optimize_structure: bool = True
-                 ) -> Tuple[Scene, BAResult]:
+                 cov_view: int = 1, optimize_structure: bool = True,
+                 check_every: int = 1) -> Tuple[Scene, BAResult]:
     """BA over the scene (Reconstructor.hpp:150-161). optimize_structure
-    False holds the landmarks (the poses-only call of coloc.hpp:339)."""
+    False holds the landmarks (the poses-only call of coloc.hpp:339); the
+    host reads the LM's exit every `check_every` iterations."""
     problem = BAProblem(
         Rs=scene.Rs, Cs=scene.Cs, X=scene.X, obs=scene.obs,
         obs_mask=scene.obs_mask & scene.X_valid[None, :],
         Ks=cams_K, dists=cams_dist)
     res = refine(problem, opts, fix_pose, optimize_structure=optimize_structure,
-                 cov_view=cov_view)
+                 cov_view=cov_view, check_every=check_every)
     return scene._replace(Rs=res.Rs, Cs=res.Cs, X=res.X), res
 
 

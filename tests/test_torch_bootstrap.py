@@ -279,7 +279,9 @@ def test_run_end_to_end(dataset):
 
 
 @pytest.mark.parametrize("what", ["inter_every", "update_map_every", "cull_map_every",
-                                  "out_dir", "model_F", "model_H", "three_drones"])
+                                  "out_dir", "model_F", "model_H", "three_drones",
+                                  "chunked_inter_every", "chunked_update_map_every",
+                                  "chunked_auto_update_map"])
 def test_unported_paths_raise(dataset, what):
     frames, _ = dataset
     _, tc = _configs()
@@ -300,9 +302,12 @@ def test_unported_paths_raise(dataset, what):
             ts.init_map({d: frames[0][0] for d in range(3)})
         return
     ts = TSession(tc, KS, DISTS, device="cpu")
+    entry = ts.run
+    if what.startswith("chunked_"):
+        entry, what = ts.run_chunked, what[len("chunked_"):]
     kw = {"inter_every": 3} if what == "inter_every" else {"inter_every": 0, what: 2}
     with pytest.raises(NotImplementedError, match="A7" if what == "inter_every" else "A8"):
-        ts.run(frames, **kw)
+        entry(frames, **kw)
     assert not ts.map_ready                      # raised before any work
 
 

@@ -193,6 +193,165 @@ def test_rank_kernel_planted_edges(dev, zmode, reps, models):
         assert float(got[0]) > 0 and float(got[1]) == 0   # identity counts, Z = 0 never
 
 
+def _drone_operands(D, Hm, M):
+    """D drones' B3 operands, each drone its own models, points and mask."""
+    per = [_rank_operands(Hm, M + d) for d in range(D)]
+    return [torch.stack([p[i][..., :M] if i else p[i] for p in per]).contiguous()
+            for i in range(4)]
+
+
+@pytest.mark.parametrize("zmode", ["pos", "nonzero"])
+@pytest.mark.parametrize("D,Hm,M", [(2, 256, 1024), (3, 1024, 5000), (2, 9, 300)])
+def test_rank_kernel_drone_axis(dev, zmode, D, Hm, M):
+    """B3 over a drone axis is one launch (the grid's z), and each drone's
+    ranks equal a D = 1 launch on that drone's operands and the batched
+    twin, bit for bit."""
+    ops = [t.to(dev) for t in _drone_operands(D, Hm, M)]
+    before = dispatch.launch_counts()["ransac_rank"]
+    got = ransac_rank.ladder_rank(*ops, 16.0, zmode)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["ransac_rank"] == before + 1
+    assert got.shape == (D, Hm)
+    assert torch.equal(got, ransac_rank.ladder_rank_plain(*ops, 16.0, zmode))
+    for d in range(D):
+        one = ransac_rank.ladder_rank(*(t[d] for t in ops), 16.0, zmode)
+        assert torch.equal(got[d], one)
+
+
+@pytest.mark.parametrize("zmode", ["pos", "nonzero"])
+def test_rank_kernel_drone_axis_planted(dev, zmode):
+    """tests/rank_cases.py's planted inputs tiled over 3 drones, drone d's
+    mask rolled by d: equal to per-drone launches and the twin."""
+    eflat, xh, obs, maskf = (torch.from_numpy(a) for a in planted_rank_operands(97))
+    eflat = eflat.repeat(-(-1000 // eflat.shape[0]), 1)[:1000]
+    ops = [torch.stack([t] * 3).contiguous().to(dev) for t in (eflat, xh, obs)]
+    ops.append(torch.stack([maskf.roll(d) for d in range(3)]).contiguous().to(dev))
+    for n_rungs in (5, 4):
+        got = ransac_rank.ladder_rank(*ops, THR_SQ, zmode, 2, n_rungs)
+        want = ransac_rank.ladder_rank_plain(*ops, THR_SQ, zmode, 2, n_rungs)
+        assert torch.equal(got, want)
+        for d in range(3):
+            one = ransac_rank.ladder_rank(*(t[d] for t in ops), THR_SQ, zmode, 2, n_rungs)
+            assert torch.equal(got[d], one)
+
+
+def _session_on(dev):
+    """A D = 2 session on the card at the CPU tests' size (240x320, 4
+    levels, 256 keypoints) with a 512-landmark map consistent with the
+    identity view, and two drones' frames near it."""
+    from coloc_tpu_torch import config
+    from coloc_tpu_torch.session import ColocSession
+
+    H, W = 240, 320
+    K = np.array([[0.6 * W, 0, W / 2], [0, 0.6 * W, H / 2], [0, 0, 1]], np.float32)
+    det = config.DetectorOptions(width=W, height=H, max_keypoints=256, num_levels=4,
+                                 fast_threshold=12)
+    cfg = config.ColocConfig(num_drones=2, detector=det, max_landmarks=512)
+    scene = synthetic.make_scene(H, W, K, seed=1)
+    eye = np.eye(3, dtype=np.float32)
+    base = synthetic.render(scene, eye, np.zeros(3, np.float32)).astype(np.float32)
+    from coloc_tpu_torch.frontend import detect_and_describe
+    f0 = convert.to_numpy(detect_and_describe(torch.from_numpy(base).to(dev), det))
+    ma = synthetic.consistent_mapdb(f0, K, 512, np.random.default_rng(0))
+    sess = ColocSession(cfg, np.stack([K, K]), np.zeros((2, 3), np.float32), device=dev)
+    sess.mapdb, sess.map_ready = convert.mapdb_from_numpy(ma, dev), True
+    sess._ensure_support()
+    images = torch.from_numpy(np.stack([
+        synthetic.render(scene, eye, np.asarray(c, np.float32))
+        for c in ((0.02, 0, 0), (0, 0.03, 0))]).astype(np.float32)).to(dev)
+    return sess, images
+
+
+def test_captured_step_equals_eager(dev):
+    """The frame step replayed from its CUDA graphs against the eager step
+    on the same static inputs and uniforms, two frames from one state:
+    torch.equal on every output (pose, covariance, rmse, n_tracks,
+    success, gate decisions), the filter bank and the landmark support;
+    the graphs' launches counted at each replay."""
+    from coloc_tpu_torch import session as sess_mod
+
+    sess, images = _session_on(dev)
+    u = torch.rand((2, 2, 256, 3), device=dev, generator=torch.Generator(dev).manual_seed(3))
+    g = sess_mod._StepGraphs(sess)
+    g.load(sess)
+    fb, sup, last = sess.filter_bank, sess.lm_support, sess.lm_last_seen
+    for f in range(2):
+        before = dispatch.launch_counts()
+        out = g.replay(images, u[f])
+        torch.cuda.synchronize()
+        after = dispatch.launch_counts()
+        for name in ("k2nn", "p3p", "ransac_rank", "fast_nms", "extract"):
+            assert after[name] - before[name] == 1, name
+        pwcs, fb, filt, _, rej, _, sup_inc = sess_mod.intra_all_device_step(
+            sess.config, images, sess.mapdb, sess._map_bank(), sess.Ks, sess.dists, fb,
+            uniforms=u[f])
+        sup, last = sess_mod._support(sup, last, sup_inc, sess.frame + f)
+        for a, b in zip(out, sess_mod._chunk_out(pwcs, filt, rej)):
+            assert torch.equal(a, b)
+        for a, b in zip(g.fb, fb):
+            assert torch.equal(a, b)
+        assert torch.equal(g.sup, sup) and torch.equal(g.last, last)
+        assert bool(out.success.all())
+
+
+def test_chunk_with_injected_draws_equals_eager(dev):
+    """intra_pose_chunk on the card (captured, the draws injected as minimal
+    samples) against intra_pose_all frame by frame with the same samples:
+    equal outputs, filter bank, support and frame counter; and captured
+    again when the map changes."""
+    captured, images = _session_on(dev)
+    eager, _ = _session_on(dev)
+    idx = torch.randint(0, 100, (2, 2, 256, 3), device=dev,
+                        generator=torch.Generator(dev).manual_seed(5))
+    block = torch.stack([images, images.flip(0)])
+    out = captured.intra_pose_chunk(block, sample_idx=idx)
+    assert captured._graphs is not None and captured._graphs.inject
+    for f in range(2):
+        eager.frame = f
+        res = eager.intra_pose_all({d: block[f, d] for d in range(2)}, sample_idx=idx[f])
+        for d in range(2):
+            a, b = out[d][f], res[d]
+            for x, y in zip((a.pose.R, a.pose.C, a.cov, a.rmse, a.n_tracks, a.success),
+                            (b.pose.R, b.pose.C, b.cov, b.rmse, b.n_tracks, b.success)):
+                assert torch.equal(x, y)
+    for x, y in zip(captured.filter_bank, eager.filter_bank):
+        assert torch.equal(x, y)
+    assert torch.equal(captured.lm_support, eager.lm_support)
+    assert torch.equal(captured.lm_last_seen, eager.lm_last_seen)
+    assert captured.frame == 2
+    # a new map (a new MapDB, as init_map makes) is captured again
+    old = captured._graphs
+    captured.mapdb = eager.mapdb = captured.mapdb._replace(X=captured.mapdb.X + 0.0)
+    out = captured.intra_pose_chunk(block[:1], sample_idx=idx[:1])
+    assert captured._graphs is not old and captured._graphs.mapdb is captured.mapdb
+    res = eager.intra_pose_all({d: block[0, d] for d in range(2)}, sample_idx=idx[0])
+    for d in range(2):
+        assert torch.equal(out[d][0].pose.C, res[d].pose.C)
+
+
+def test_step_reads_nothing_on_the_host(dev):
+    """One eager frame step with its draws injected on the card and the LM's
+    exit left to its done mask: under torch.cuda.set_sync_debug_mode
+    ("error") no operation synchronizes with the host."""
+    from coloc_tpu_torch import session as sess_mod
+
+    sess, images = _session_on(dev)
+    cfg = sess.config
+    sess_mod.intra_all_device_step(cfg, images, sess.mapdb, sess._map_bank(), sess.Ks,
+                                   sess.dists, sess.filter_bank, uniforms=sess._draw(2))
+    idx = torch.randint(0, 100, (2, 256, 3), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sess_mod.intra_all_device_step(
+            cfg, images, sess.mapdb, sess._map_bank(), sess.Ks, sess.dists,
+            sess.filter_bank, sample_idx=idx, check_every=cfg.refiner.max_iterations)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out[0].pose.R.shape == (2, 3, 3)
+
+
 def _squares(h, w, value):
     """value-filled 5x5 squares on black every 12 px: their corners' best
     arcs score exactly `value`."""
