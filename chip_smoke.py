@@ -17,6 +17,8 @@ matcher against a 262144-row bank. Phases:
   3. kernels  — each kernel against its plain PyTorch twin on the card, at
                 the shapes of the main path, with kernel and plain times;
                 B1 also at the AKAZE frame's and the large map's shapes,
+                B1 at the fusion round's map against a temp map (4096 x
+                4096, most temp slots invalid),
                 B2 at B=1000, B3 at the AKAZE frame's M=5000, at small
                 shapes and on planted edge inputs, over a drone axis
                 against per-drone launches, B4 on the D=1
@@ -54,6 +56,17 @@ matcher against a 262144-row bank. Phases:
                 the ground-truth trajectory; init_map again through the
                 plain CPU path with the same five-point draws; B9 timed
                 at the correspondence count init_map passed it
+  4i fusion   — inter-drone relative pose and ICI fusion on 4d's session:
+                inter_pose_round on its last frame (B1 frame against
+                frame and map against temp map, B6-B9), checked against
+                the ground-truth relative rotation and a float64 ICI; the
+                pair with injected draws on the card and through the plain
+                CPU path; inter_pose and round p50/p99, launches, host
+                reads, device kernels, idle share and B1/B6-B9's device
+                time a round; run(frames) with the reference's default
+                inter_every=10 and run_chunked(chunk=CHUNK,
+                inter_every=CHUNK) over 4h's trajectory, the rounds where
+                the schedule puts them
   4e akaze    — AKAZE_FRAMES frames of the AKAZE frame op (5000 keypoints,
                 Lowe-ratio matching against 8192 landmarks, P3P), stage
                 times, a profile, and the card's features against the
@@ -103,6 +116,8 @@ SESSION_FRAMES = 10
 CHUNK, CHUNKS, ROUNDS = 16, 2, 3
 # frames of 4h held to the eager step bit for bit
 CHECKED = 4
+# timed calls of inter_pose and of inter_pose_round (4i)
+FUSION_CALLS = 10
 WARMUP, ITERS = 10, 100
 # the AKAZE frame op at the reference's CPU preset (bench.py _bench_akaze)
 # and the AKAZE session (bench.py config_akaze)
@@ -152,6 +167,7 @@ PATH_KERNELS = {
     "4f akaze session": AKAZE_KERNELS + BOOTSTRAP_KERNELS,
     "4g large map": ("k2nn_group", "k2nn"),
     "4h chunked": FRAME_KERNELS + BOOTSTRAP_KERNELS,
+    "4i fusion": ("k2nn",) + BOOTSTRAP_KERNELS,
 }
 # the phase whose launches the kernels line reports
 LAUNCH_PHASE = {**{name: "4b frame" for name in FRAME_KERNELS},
@@ -641,6 +657,250 @@ def phase_4h(torch, np, dev, card, cfg_d, Ks2, dists2, frames, traj, counts):
     return sess_c
 
 
+def ici64(np, CA, CB, a, b):
+    """Float64 inverse covariance intersection, independent of the port's
+    golden-section form: w* from a scan of 2001 weights refined by 80
+    golden-section steps (tests/oracle.py's recipe). -> (cov, pos, w)."""
+    CA, CB, a, b = (np.asarray(x, np.float64) for x in (CA, CB, a, b))
+    CAi, CBi = np.linalg.inv(CA), np.linalg.inv(CB)
+
+    def trace_at(w):
+        return np.trace(np.linalg.inv(CAi + CBi - np.linalg.inv(w * CA + (1.0 - w) * CB)))
+
+    ws = np.linspace(0.0, 1.0, 2001)
+    i = int(np.argmin([trace_at(w) for w in ws]))
+    lo, hi = ws[max(i - 1, 0)], ws[min(i + 1, len(ws) - 1)]
+    phi = (np.sqrt(5.0) - 1.0) / 2.0
+    for _ in range(80):
+        m1, m2 = hi - phi * (hi - lo), lo + phi * (hi - lo)
+        if trace_at(m1) < trace_at(m2):
+            hi = m2
+        else:
+            lo = m1
+    w = 0.5 * (lo + hi)
+    M = np.linalg.inv(w * CA + (1.0 - w) * CB)
+    Cf = np.linalg.inv(CAi + CBi - M)
+    return Cf, Cf @ (CAi - w * M) @ a + Cf @ (CBi - (1.0 - w) * M) @ b, float(w)
+
+
+def phase_4i(torch, np, dev, card, cfg_d, Ks2, dists2, sess, frames, traj, frames_h,
+             traj_h, counts):
+    """Inter-drone fusion (interPoseEstimator) on the card: inter_pose_round
+    on 4d's session and last frame, checked against the ground truth and a
+    float64 ICI; the same pair with injected draws on the card and through
+    the plain CPU path; inter_pose p50/p99, launches, host reads, device
+    kernels, idle share and B1/B6-B9's device time a round; then run(frames)
+    with the reference's default inter_every=10 and run_chunked(chunk=CHUNK,
+    inter_every=CHUNK) on 4h's trajectory, each round where the schedule
+    puts it."""
+    from types import SimpleNamespace
+
+    from coloc_tpu_torch import convert, session
+    from coloc_tpu_torch.matching import match_pair
+    from coloc_tpu_torch.ops import dispatch
+    from coloc_tpu_torch.parallel import mesh
+    from coloc_tpu_torch.ransac import sample_indices
+    from coloc_tpu_torch.types import Features
+
+    last = len(frames[0]) - 1
+    images = {d: frames[d][last] for d in range(2)}
+    outs, real_core = [], mesh.inter_pose_device
+
+    def recording_core(*args, **kw):
+        out = real_core(*args, **kw)
+        outs.append(out)
+        return out
+
+    def fusion_inputs(sess_x, out):
+        """The two estimates ICI fused: (C_intra, C_cand, dst_pos, cand_C)."""
+        src, dst = sess_x.last_pose[0], sess_x.last_pose[1]
+        eye = 1e-6 * np.eye(3)
+        cpu = [t.detach().cpu().double().numpy() for t in
+               (dst.cov[3:6, 3:6], src.cov[3:6, 3:6], out.diag.cov_rel, dst.pose.C,
+                src.pose.C, src.pose.R, out.rel.C)]
+        return cpu[0] + eye, cpu[1] + cpu[2] + eye, cpu[3], cpu[4] + cpu[5].T @ cpu[6]
+
+    mesh.inter_pose_device = recording_core
+    try:
+        # the round on the last frame, its draws from the session's generator
+        dispatch.reset_launch_counts()
+        res = sess.inter_pose_round(images)
+        torch.cuda.synchronize()
+        counts["4i fusion"] = launches = dispatch.launch_counts()
+        check(set(res) == {1} and len(outs) == 1, f"4i: the round fused {sorted(res)}")
+        out = outs[0]
+        n_common, scale = int(out.diag.n_common), float(out.scale)
+        check(bool(out.ok) and res[1] is not None, "4i: the fusion round failed")
+        check(n_common >= 2 and np.isfinite(scale) and scale > 0,
+              f"4i: {n_common} common landmarks, scale {scale}")
+        R_gt = torch.from_numpy(traj[1][0][last] @ traj[0][0][last].T).to(dev)
+        dR_gt = rotation_error(torch, out.rel.R, R_gt)
+        check(dR_gt < 1e-2, f"4i: relative rotation {dR_gt:.3e} rad from the ground truth")
+        cov = res[1].cov.double().cpu().numpy()
+        check(np.isfinite(cov).all() and np.allclose(cov, cov.T, atol=1e-7)
+              and np.linalg.eigvalsh(cov).min() > 0, "4i: the fused covariance is not SPD")
+        CA, CB, a, b = fusion_inputs(sess, out)
+        cov64, pos64, w64 = ici64(np, CA, CB, a, b)
+        tr_rel = abs(float(res[1].trace) - np.trace(cov64)) / np.trace(cov64)
+        gap = float(np.linalg.norm(a - b))
+        d_pos = float(np.abs(res[1].pos.double().cpu().numpy() - pos64).max())
+        d_w = abs(float(res[1].omega) - w64)
+        print(f"[4i round] inter_pose_round on frame {last}: ok, {int(out.diag.n_inliers)} E "
+              f"inliers, {n_common} common landmarks, scale {scale:.5f}, relative rotation "
+              f"{dR_gt:.3e} rad from the ground truth, refine rmse {float(out.diag.rmse):.4f} "
+              f"px; ICI w* {float(res[1].omega):.5f} (float64 {w64:.5f}), trace "
+              f"{float(res[1].trace):.6e} ({tr_rel:.2e} relative to float64), position "
+              f"{d_pos:.3e} from float64 (|a - b| {gap:.4f})")
+        # the trace is flat near its minimum to below float32 resolution
+        # (ROADMAP C15): tight on the trace, loose on w* and the position
+        check(tr_rel <= 1e-5 and d_w <= 1e-2 and d_pos <= 1e-2 * gap,
+              f"4i: ICI against float64: trace {tr_rel:.2e} relative, w* {d_w:.2e}, "
+              f"position {d_pos:.2e} (|a - b| {gap:.3e})")
+        print(f"[4i round] launches a round: {launches}  ({card})")
+
+        # the same pair with injected draws: card against the plain CPU path
+        feats = {d: sess.detect(images[d]) for d in range(2)}
+        m = match_pair(feats[0], feats[1], cfg_d.matcher)
+        draws = sample_indices(m.mask, cfg_d.ransac.num_hypotheses, 5,
+                               torch.Generator(device=dev).manual_seed(SEED + 9))
+        s_cpu = session.ColocSession(cfg_d, Ks2, dists2, device="cpu")
+        convert.session_state_from_numpy(SimpleNamespace(
+            mapdb=convert.to_numpy(sess.mapdb), scene=convert.to_numpy(sess.scene),
+            filter_bank=convert.to_numpy(sess.filter_bank),
+            lm_support=convert.to_numpy(sess.lm_support),
+            lm_last_seen=convert.to_numpy(sess.lm_last_seen), frame=sess.frame,
+            map_ready=sess.map_ready,
+            last_pose={d: convert.to_numpy(p) for d, p in sess.last_pose.items()}), s_cpu)
+        outs.clear()
+        r_g = sess.inter_pose(0, 1, images, feats=feats, sample_idx=draws)
+        r_c = s_cpu.inter_pose(0, 1, images, sample_idx=draws.cpu(), feats={
+            d: Features(*(t.cpu() for t in f)) for d, f in feats.items()})
+        check(r_g is not None and r_c is not None, "4i: the injected pair did not fuse")
+        og, oc = outs
+        dR = rotation_error(torch, og.rel.R.cpu().double(), oc.rel.R.double())
+        Cg, Cc = og.rel.C.cpu().double(), oc.rel.C.double()
+        dC = float(torch.arccos(torch.clamp(Cg @ Cc / (Cg.norm() * Cc.norm()), -1.0, 1.0)))
+        d_scale = abs(float(og.scale) / float(oc.scale) - 1.0)
+        _, _, a, b = fusion_inputs(sess, og)
+        gap = float(np.linalg.norm(a - b))
+        d_pos = float((r_g.pos.cpu() - r_c.pos).abs().max())
+        print(f"[4i reference] inter_pose(0, 1) card vs CPU plain path, the same features and "
+              f"draws: E inliers {int(og.diag.n_inliers)} / {int(oc.diag.n_inliers)}, common "
+              f"landmarks {int(og.diag.n_common)} / {int(oc.diag.n_common)}, relative rotation "
+              f"{dR:.2e} rad, baseline direction {dC:.2e} rad, scale {d_scale:.2e} relative, "
+              f"fused position {d_pos:.2e} apart (|a - b| {gap:.4f}), w* "
+              f"{float(r_g.omega):.5f} / {float(r_c.omega):.5f}")
+        check(dR < 1e-3 and dC < 5e-3, f"4i card vs CPU: relative rotation {dR:.2e} rad, "
+              f"baseline direction {dC:.2e} rad")
+        check(d_scale < 1e-2 and d_pos < 1e-2,
+              f"4i card vs CPU: scale {d_scale:.2e} relative, fused position {d_pos:.2e}")
+    finally:
+        mesh.inter_pose_device = real_core
+
+    # inter_pose p50/p99 (features given, the fusion core alone) and the
+    # whole round (detection included), CUDA events after a warm-up
+    def timed(fn, n):
+        ms = []
+        for i in range(n + 2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                ms.append(start.elapsed_time(end))
+        return ms
+
+    pair_ms = timed(lambda: sess.inter_pose(0, 1, images, feats=feats), FUSION_CALLS)
+    round_ms = timed(lambda: sess.inter_pose_round(images), FUSION_CALLS)
+    _, reads = host_reads(torch, lambda: sess.inter_pose_round(images))
+    print(f"[4i timing] inter_pose (features given) {percentiles(np, pair_ms)}; "
+          f"inter_pose_round {percentiles(np, round_ms)}, over {FUSION_CALLS} calls each; "
+          f"{reads} host reads a round  ({card})")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.inter_pose_round(images)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if busy_us > 0:
+        each = {tag: sum(e.time_range.elapsed_us() for e in kernels if k in e.name)
+                for tag, k in (("B1", "k2nn_mma_kernel"), ("B6", "front_kernel"),
+                               ("B7", "dk_kernel"), ("B8", "polish_kernel"),
+                               ("B9", "epi_rank_kernel"))}
+        print(f"[4i profile] a round: {len(kernels)} device kernels, device busy "
+              f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+              f"({100.0 - 100.0 * busy_us / wall_us:.1f}% idle, profiler on); "
+              + ", ".join(f"{tag} {us:.1f} us ({100.0 * us / busy_us:.2f}%)"
+                          for tag, us in each.items())
+              + f"; B6-B9 {sum(each[t] for t in ('B6', 'B7', 'B8', 'B9')):.1f} us")
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        print("[4i profile] device us a round, largest kernels: " + "; ".join(
+            f"{us:.1f} {name[:60]}" for name, us in sorted(by_name.items(),
+                                                             key=lambda kv: -kv[1])[:8]))
+    else:
+        print("[4i profile] the profiler saw no device time: not measured")
+
+    # run with the reference's default, run_chunked with a round a chunk
+    def rounds_of(sess_x):
+        at, real = [], sess_x.inter_pose_round
+
+        def counted(imgs, policy="auto"):
+            at.append(sess_x.frame)
+            return real(imgs, policy)
+        sess_x.inter_pose_round = counted
+        return at
+
+    n_h = len(frames_h[0])
+    results = {}
+    for tag, call, want in (
+            ("run(frames)", lambda s: s.run(frames_h),
+             list(range(10, n_h, 10))),
+            (f"run_chunked(chunk={CHUNK}, inter_every={CHUNK})",
+             lambda s: s.run_chunked(frames_h, chunk=CHUNK, inter_every=CHUNK),
+             [min(f + CHUNK - 1, n_h - 1) for f in range(1, n_h, CHUNK)])):
+        sess_x = session.ColocSession(cfg_d, Ks2, dists2, seed=SEED)
+        at = rounds_of(sess_x)
+        t0 = time.perf_counter()
+        out_x = call(sess_x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(at == want, f"4i {tag}: rounds on frames {at}, the schedule's {want}")
+        errs = []
+        for d in range(2):
+            check(len(out_x[d]) == n_h - 1, f"4i {tag}: {len(out_x[d])} frames of {n_h - 1}")
+            for f, p in enumerate(out_x[d], start=1):
+                check(bool(p.success), f"4i {tag} frame {f} drone {d}: localization failed")
+                R_gt = torch.from_numpy(traj_h[d][0][f] @ traj_h[0][0][0].T).to(dev)
+                errs.append(rotation_error(torch, p.pose.R, R_gt))
+        errs_deg = np.degrees(np.asarray(errs))
+        check(np.median(errs_deg) < 1.0 and errs_deg.max() < 2.0,
+              f"4i {tag}: rotation error median {np.median(errs_deg):.3f}, max "
+              f"{errs_deg.max():.3f} deg")
+        C0 = [float(p.pose.C[0]) for p in out_x[0]]
+        check(C0[-1] > C0[0], f"4i {tag}: drone 0's centre does not move along +x")
+        steps = sess_x.filter_bank.steps.tolist()
+        check(min(steps) >= n_h - 1 - 5, f"4i {tag}: filter steps {steps}")
+        results[tag] = out_x
+        print(f"[4i run] {tag}: init_map then {n_h - 1} frames of 2 drones ok in {wall:.3f} s; "
+              f"rounds on frames {at}; rotation error median {np.median(errs_deg):.4f}, max "
+              f"{errs_deg.max():.4f} deg; filter steps {steps}  ({card})")
+    # both draw the same uniforms frame by frame until the first round
+    (a, b), k = results.values(), min(10, CHUNK)
+    same = all(torch.equal(x.pose.C, y.pose.C) and torch.equal(x.cov, y.cov)
+               for d in range(2) for x, y in zip(a[d][:k], b[d][:k]))
+    check(same, "4i: run and run_chunked differ before the first round")
+    print(f"[4i run] frames 1-{k} of run and run_chunked bit-equal (the same draws before "
+          f"the first round)")
+
+
 def sync_check(torch, cfg_x, sess, images, tag, mode="warn"):
     """One eager frame step on the card with its draws injected and the
     pose LM's exit left to its done mask, under torch.cuda's sync debug
@@ -816,6 +1076,34 @@ def main(argv=None) -> int:
             timed_pair(f"k2nn {tag}", *k2nn_pair(q_c, qv_c, bank_c), "k2nn", card,
                        bound(Qc * 65 + Tc * 68 + 12 * Qc, 2.0 * Qc * Tc * 512, INT8_OPS))
         del q_c, qv_c, bank_c
+
+    # B1 at the fusion round's map-against-map shape (4i): the map's 4096
+    # landmarks as queries against a temp map of 4096 slots, whose first KP
+    # slots hold the frame's features (a third of them invalid, as outside
+    # the two-view inliers) and the rest zero descriptors, invalid
+    temp_desc = torch.zeros((LANDMARKS, 16), dtype=torch.int32, device=dev)
+    temp_desc[:KP] = feats.desc
+    temp_valid = torch.zeros(LANDMARKS, dtype=torch.bool, device=dev)
+    temp_valid[:KP] = torch.rand(KP, generator=torch.Generator(device=dev).manual_seed(SEED + 3),
+                                 device=dev) > 1.0 / 3.0
+    bank_m = hamming.pack_bank(temp_desc, temp_valid)
+    out_k = hamming._hamming_2nn_cuda(mapdb.desc, mapdb.valid, bank_m)
+    out_p = hamming.hamming_2nn_plain(mapdb.desc, mapdb.valid, bank_m)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
+          "k2nn at the map-against-map shape differs from its plain twin")
+    hits = int(((out_k[0] >= 0) & (out_k[1] == 0)).sum())
+    print(f"[3 k2nn] Q={LANDMARKS} x T={LANDMARKS} map against a temp map ({int(temp_valid.sum())} "
+          f"valid slots): bit-equal to the twin, {hits} exact hits")
+    check(hits > 0, "k2nn at the map-against-map shape found no exact hit")
+    timed_pair(f"k2nn Q={LANDMARKS} x T={LANDMARKS} (maps)",
+               *k2nn_pair(mapdb.desc, mapdb.valid, bank_m), "k2nn", card,
+               bound(LANDMARKS * 65 + LANDMARKS * 68 + 12 * LANDMARKS,
+                     2.0 * LANDMARKS * LANDMARKS * 512, INT8_OPS))
+    print(f"[3 k2nn] Q={LANDMARKS} x T={LANDMARKS} (maps): plain twin "
+          f"{cuda_ms(lambda: hamming.hamming_2nn_plain(mapdb.desc, mapdb.valid, bank_m)):.4f} "
+          f"ms  ({card})")
+    del temp_desc, temp_valid, bank_m, out_k, out_p
 
     # B2: 256 minimal samples of the frame's 2D-3D correspondences (and
     # 1000 more). Against its twin statistically (float32 P3P, ROADMAP C8):
@@ -2056,6 +2344,15 @@ def main(argv=None) -> int:
     else:
         print("[4d profile] the profiler saw no device time: not measured")
 
+    # ---- phase 4i: inter-drone fusion (interPoseEstimator) ----------------
+    # 4h's trajectory: two chunks of CHUNK frames after the bootstrap frame
+    n_h = CHUNK * CHUNKS + 1
+    traj_h = [synthetic.trajectory(n_h, d) for d in range(2)]
+    frames_h = {d: [synthetic.render(scene, traj_h[d][0][f], traj_h[d][1][f]).astype(np.float32)
+                    for f in range(n_h)] for d in range(2)}
+    phase_4i(torch, np, dev, card, cfg_d, Ks2, dists2, sess, frames, traj, frames_h, traj_h,
+             counts)
+
     # ---- phase 4e: the AKAZE frame op (bench.py _bench_akaze) -----------
     from coloc_tpu_torch import akaze
 
@@ -2183,10 +2480,6 @@ def main(argv=None) -> int:
     except NotImplementedError as e:
         print(f"[4h sync AKAZE] intra_pose_chunk raises NotImplementedError ({e}); "
               f"{len(found_a)} sites found")
-    n_h = CHUNK * CHUNKS + 1
-    traj_h = [synthetic.trajectory(n_h, d) for d in range(2)]
-    frames_h = {d: [synthetic.render(scene, traj_h[d][0][f], traj_h[d][1][f]).astype(np.float32)
-                    for f in range(n_h)] for d in range(2)}
     phase_4h(torch, np, dev, card, cfg_d, Ks2, dists2, frames_h, traj_h, counts)
 
     # ---- phase 5: each path went through its kernels -------------------

@@ -10,12 +10,13 @@ Idiom: plain functions on tensors, NamedTuples of tensors for the data model
 for RANSAC sampling.
 
 Ported so far (match+localize, the TRIP frontend, the session with the
-two-drone bootstrap):
+two-drone bootstrap and inter-drone fusion):
   config, types, convert   — options, data model, numpy <-> tensor (a
                              coloc_tpu session's state included)
   ops/dispatch, ops/_build — device dispatch + launch counters, nvcc build
   ops/hamming              — 2-NN against a bank (kernel csrc/k2nn.cu)
-  matching                 — margin / ratio accept, match_with_map, match_pair
+  matching                 — margin / ratio accept, match_with_map, match_pair,
+                             match_maps
   geometry/{so3,se3,camera}— rotations, poses, the radial camera
   geometry/p3p             — P3P flats (kernel csrc/p3p.cu)
   geometry/fivept          — five-point solver (csrc/fivept_{front,dk,polish}.cu)
@@ -34,6 +35,9 @@ two-drone bootstrap):
   ops/patches              — stacked raster, patch windows (csrc/extract.cu)
   frontend                 — detect_and_describe(_batch), TRIP backend
   fusion/kalman, session   — Kalman bank, intra_all_device_step, ColocSession
+  fusion/covint            — inverse covariance intersection (ICI)
+  utils, metrics           — map scale and Sim(3) alignment, ATE / RPE
+  parallel/mesh            — inter_pose_device, the inter-drone fusion core
   io/synthetic             — numpy-only scene renderer and workload generator
 """
 

@@ -22,7 +22,7 @@ from coloc_tpu_torch.fusion.kalman import FilterBank
 from coloc_tpu_torch.geometry.camera import Camera
 from coloc_tpu_torch.ops.dispatch import default_device
 from coloc_tpu_torch.sfm.reconstruct import Scene
-from coloc_tpu_torch.types import Features, MapDB, TwoViewGeometry
+from coloc_tpu_torch.types import Features, MapDB, Pose, PoseWithCov, TwoViewGeometry
 
 
 def _desc_to_torch(desc, device) -> torch.Tensor:
@@ -95,11 +95,21 @@ def two_view_from_numpy(geo: Any, device=None) -> TwoViewGeometry:
     )
 
 
+def pose_with_cov_from_numpy(p: Any, device=None) -> PoseWithCov:
+    device = default_device(device)
+    return PoseWithCov(
+        pose=Pose(R=_f32(p.pose.R, device), C=_f32(p.pose.C, device)),
+        cov=_f32(p.cov, device), rmse=_f32(p.rmse, device),
+        n_tracks=_i32(p.n_tracks, device), success=_bool(p.success, device),
+    )
+
+
 def session_state_from_numpy(session: Any, target) -> None:
     """Carry a session's state (`mapdb`, `scene`, `filter_bank`,
-    `lm_support`, `lm_last_seen`, `frame`, `map_ready`) from `session`, a
-    coloc_tpu ColocSession or any object with those attributes, into the
-    port's ColocSession `target`, on the target's device."""
+    `lm_support`, `lm_last_seen`, `frame`, `map_ready`, and `last_pose`, a
+    dict drone -> PoseWithCov) from `session`, a coloc_tpu ColocSession or
+    any object with those attributes, into the port's ColocSession
+    `target`, on the target's device."""
     dev = target.device
     target.mapdb = (None if session.mapdb is None
                     else mapdb_from_numpy(session.mapdb, dev))
@@ -109,13 +119,16 @@ def session_state_from_numpy(session: Any, target) -> None:
     for name in ("lm_support", "lm_last_seen"):
         value = getattr(session, name)
         setattr(target, name, None if value is None else _i32(value, dev))
+    target.last_pose = {int(d): pose_with_cov_from_numpy(p, dev)
+                        for d, p in session.last_pose.items()}
     target.frame = int(session.frame)
     target.map_ready = bool(session.map_ready)
 
 
 def to_numpy(x: Any) -> Any:
-    """Tensor -> ndarray; NamedTuple -> the same NamedTuple of ndarrays, with
-    a `desc` field viewed back to the reference's uint32."""
+    """Tensor -> ndarray; NamedTuple (nested ones too, as InterPoseOut's
+    `rel` and `diag`) -> the same NamedTuple of ndarrays, with a `desc`
+    field viewed back to the reference's uint32."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     if isinstance(x, tuple) and hasattr(x, "_fields"):

@@ -64,3 +64,11 @@ def match_with_map(query: Features, mapdb: MapDB, opts: MatcherOptions,
             bank = pack_map_bank(mapdb)
         idx, best, second = hamming.hamming_2nn_bank(query.desc, query.valid, bank)
     return _accept(idx, best, second, query.valid, opts, opts.margin_threshold)
+
+
+def match_maps(map_a: MapDB, map_b: MapDB, opts: MatcherOptions) -> Matches:
+    """Map-vs-map descriptor matching (matchMapFeatures parity), with the
+    map margin; idx indexes map_b's landmark slots."""
+    idx, best, second = hamming.hamming_2nn(map_a.desc, map_b.desc, map_a.valid,
+                                            map_b.valid)
+    return _accept(idx, best, second, map_a.valid, opts, opts.margin_threshold)

@@ -133,8 +133,22 @@ def relative_pose_essential(
     E_final = torch.where(keep, E_ref, res.model)
     R, t = ess.decompose_essential(E_final, x1, x2, inliers)
     return TwoViewGeometry(R=R, t=t, inliers=inliers,
-                           n_inliers=inliers.to(torch.int32).sum(),
+                           n_inliers=inliers.sum(dtype=torch.int32),
                            success=res.success)
+
+
+def relative_pose(model: str, uv1, uv2, mask, cam1, cam2, opts: RansacOptions,
+                  **kw) -> TwoViewGeometry:
+    """The two-view estimator of geometric model `model` (coloc_tpu's
+    dispatch over relative_pose_{essential,fundamental,homography}); `kw`
+    goes to it. Models F and H are not ported yet and raise."""
+    if model == "E":
+        return relative_pose_essential(uv1, uv2, mask, cam1, cam2, opts, **kw)
+    if model in ("F", "H"):
+        raise NotImplementedError(
+            f"model {model!r}: the {'fundamental' if model == 'F' else 'homography'}"
+            " two-view path is not ported yet (ROADMAP A6)")
+    raise ValueError(f"unknown geometric model {model!r}")
 
 
 def absolute_pose_p3p(

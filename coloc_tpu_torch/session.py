@@ -12,9 +12,12 @@ bank.
       samples, one B3 launch, one LM with a done mask per drone), landmark
       support counts, the filter bank update
   ColocSession          — init_map (the D = 2 model-E bootstrap),
-      intra_pose_all, intra_pose (the same body at D = 1), run, and
-      intra_pose_chunk / run_chunked, which on the card replay the step as
-      a captured CUDA graph (coloc_tpu's lax.scan over the jitted step)
+      intra_pose_all, intra_pose (the same body at D = 1), inter_pose and
+      inter_pose_round (inter-drone relative pose and ICI fusion through
+      parallel/mesh.inter_pose_device), run, and intra_pose_chunk /
+      run_chunked, which on the card replay the step as a captured CUDA
+      graph (coloc_tpu's lax.scan over the jitted step); run and
+      run_chunked fuse every `inter_every` frames (whole chunks), eagerly
 
 The host drives the events; tensors stay on the session's device, which is
 cuda:0 unless the caller asks for another. RANSAC draws are uniforms from
@@ -34,10 +37,9 @@ changes nothing, so the graphs give the eager step's bits. On the CPU the
 chunk runs that step eagerly frame by frame.
 
 Not ported yet, each raising NotImplementedError where it is asked for:
-models F and H and the D > 2 reconstruction (ROADMAP A6), inter-drone
-fusion (A7), update_map and the map lifecycle (A6, A8), logging,
-checkpoints and the stage profiler (A5b), the AKAZE frontend's captured
-chunk (A5a-3).
+models F and H and the D > 2 reconstruction (ROADMAP A6), update_map and
+the map lifecycle (A6, A8), logging, checkpoints, the stage profiler and
+the debug output (A5b), the AKAZE frontend's captured chunk (A5a-3).
 """
 
 from __future__ import annotations
@@ -52,10 +54,11 @@ import torch
 from coloc_tpu_torch import matching, robust
 from coloc_tpu_torch.config import ColocConfig
 from coloc_tpu_torch.frontend import detect_and_describe, detect_and_describe_batch
-from coloc_tpu_torch.fusion import kalman
+from coloc_tpu_torch.fusion import covint, kalman
 from coloc_tpu_torch.geometry import so3
 from coloc_tpu_torch.geometry.camera import Camera
 from coloc_tpu_torch.ops import dispatch, hamming
+from coloc_tpu_torch.parallel import mesh
 from coloc_tpu_torch.sfm import ba, localize, reconstruct
 from coloc_tpu_torch.types import (Features, MapDB, Matches, Pose, PoseWithCov,
                                    TwoViewGeometry)
@@ -383,20 +386,6 @@ class ColocSession:
     def detect(self, image) -> Features:
         return detect_and_describe(self._image(image), self.config.detector)
 
-    def _relative_pose(self, uv1, uv2, mask, cam1, cam2,
-                       sample_idx=None) -> TwoViewGeometry:
-        model = self.config.model
-        if model == "E":
-            return robust.relative_pose_essential(
-                uv1, uv2, mask, cam1, cam2, self.config.ransac,
-                generator=self.generator, sample_idx=sample_idx,
-                check_every=BOOTSTRAP_CHECK_EVERY)
-        if model in ("F", "H"):
-            raise NotImplementedError(
-                f"model {model!r}: the {'fundamental' if model == 'F' else 'homography'}"
-                " two-view path is not ported yet (ROADMAP A6)")
-        raise ValueError(f"unknown geometric model {model!r}")
-
     def init_map(self, images, sample_idx: Optional[torch.Tensor] = None) -> bool:
         """Bootstrap the shared map from one frame of each of two drones
         (ColoC::initMap, coloc.hpp:151-199): detect, match the pair, model-E
@@ -411,8 +400,10 @@ class ColocSession:
                 "ported yet (ROADMAP A6)")
         f0, f1 = self.detect(images[0]), self.detect(images[1])
         m = matching.match_pair(f0, f1, cfg.matcher)
-        geo = self._relative_pose(f0.xy, f1.xy[m.idx.long()], m.mask,
-                                  self.cams[0], self.cams[1], sample_idx)
+        geo = robust.relative_pose(
+            cfg.model, f0.xy, f1.xy[m.idx.long()], m.mask, self.cams[0], self.cams[1],
+            cfg.ransac, generator=self.generator, sample_idx=sample_idx,
+            check_every=BOOTSTRAP_CHECK_EVERY)
         if not bool(geo.success):
             return False
         origin = Pose(R=torch.eye(3, device=self.device),
@@ -575,13 +566,69 @@ class ColocSession:
         self.frame = frame0 + F
         return out
 
+    def inter_pose_round(self, images, policy: str = "auto"
+                         ) -> Dict[int, Optional[covint.FusionResult]]:
+        """One inter-drone fusion round over all drones: dict dst ->
+        FusionResult or None. The reference fuses (0, 1) for its two-drone
+        demo (coloc.hpp:141); as in coloc_tpu the pairs follow `policy`:
+          - "auto": D = 2 -> "reference", the single (0, 1); D > 2 -> "ring";
+          - "ring": every drone d fused with partner (d - 1) mod D;
+          - "best": every drone fused with the other drone whose intra
+            position covariance has the smallest trace.
+        Each drone's features are detected once and shared by the round's
+        pairs."""
+        D = self.config.num_drones
+        if D < 2:
+            return {}
+        if policy == "auto":
+            policy = "reference" if D == 2 else "ring"
+        if policy == "reference":
+            pairs = [(0, 1)]
+        elif policy == "ring":
+            pairs = [((d - 1) % D, d) for d in range(D)]
+        elif policy == "best":
+            traces = {d: float(torch.trace(self.last_pose[d].cov[3:6, 3:6]))
+                      if d in self.last_pose else float("inf") for d in range(D)}
+            pairs = [(min((d for d in range(D) if d != dst), key=lambda d: traces[d]), dst)
+                     for dst in range(D)]
+        else:
+            raise ValueError(f"unknown inter-pose policy {policy!r}")
+        feats = {d: self.detect(images[d]) for d in range(D)}
+        return {dst: self.inter_pose(src, dst, images, feats=feats) for src, dst in pairs}
+
+    def inter_pose(self, src: int, dst: int, images,
+                   feats: Optional[Dict[int, Features]] = None,
+                   sample_idx: Optional[torch.Tensor] = None
+                   ) -> Optional[covint.FusionResult]:
+        """Inter-drone relative localization and ICI fusion of drone `dst`
+        with partner `src` (interPoseEstimator, coloc.hpp:274-392) through
+        mesh.inter_pose_device. None where either drone has no pose yet or
+        the fusion failed; the result is returned, not written into the
+        filter bank. `feats`: detected features to reuse, by drone.
+        `sample_idx` (256, 5): injected five-point draws (coloc_tpu's
+        `key`); otherwise the session's generator draws them."""
+        if src not in self.last_pose or dst not in self.last_pose:
+            return None
+        feats = feats or {}
+        f_src = feats[src] if src in feats else self.detect(images[src])
+        f_dst = feats[dst] if dst in feats else self.detect(images[dst])
+        pose_src, pose_dst = self.last_pose[src], self.last_pose[dst]
+        out = mesh.inter_pose_device(
+            f_dst, f_src, self.cams[src], self.cams[dst],
+            torch.stack([self.Ks[src], self.Ks[dst]]),
+            torch.stack([self.dists[src], self.dists[dst]]),
+            pose_src.pose, pose_src.cov[3:6, 3:6], pose_dst.pose.C,
+            pose_dst.cov[3:6, 3:6], self.mapdb, self.config,
+            generator=self.generator, sample_idx=sample_idx,
+            check_every=BOOTSTRAP_CHECK_EVERY)
+        if not bool(out.ok):
+            return None
+        return covint.FusionResult(cov=out.fused_cov, pos=out.fused_pos,
+                                   omega=out.diag.omega, trace=out.diag.trace)
+
     @staticmethod
-    def _refuse(inter_every: int, num_drones: int, lifecycle: Dict[str, object]) -> None:
+    def _refuse(lifecycle: Dict[str, object]) -> None:
         """Raise for the options whose paths are not ported yet."""
-        if inter_every and num_drones >= 2:
-            raise NotImplementedError(
-                f"inter_every={inter_every}: inter-drone relative pose and "
-                "fusion are not ported yet (ROADMAP A7); pass inter_every=0")
         asked = [k for k, v in lifecycle.items() if v]
         if asked:
             raise NotImplementedError(
@@ -602,26 +649,30 @@ class ColocSession:
             cull_map_every: int = 0, cull_max_age: int = 64,
             cull_min_support: int = 8) -> Dict[int, list]:
         """mainThread parity (coloc.hpp:96-148): bootstrap on the first
-        frames that succeed, then intra_pose_all every frame. Returns the
-        per-drone lists of filtered poses. The options of paths not ported
-        yet raise rather than being skipped."""
+        frames that succeed, then intra_pose_all every frame, and an
+        inter_pose_round on every frame whose index is a multiple of
+        `inter_every` (0: never). Returns the per-drone lists of filtered
+        poses. The options of paths not ported yet raise rather than being
+        skipped."""
         cfg = self.config
-        self._refuse(inter_every, cfg.num_drones,
-                     {"update_map_every": update_map_every,
+        D = cfg.num_drones
+        self._refuse({"update_map_every": update_map_every,
                       "auto_update_map": auto_update_map,
                       "extend_map_every": extend_map_every,
                       "cull_map_every": cull_map_every})
         num_frames = min(len(v) for v in frames.values())
-        out = {d: [] for d in range(cfg.num_drones)}
+        out = {d: [] for d in range(D)}
         f = self._bootstrap(frames, num_frames)
         if not self.map_ready:
             return out
         for frame_idx in range(f, num_frames):
             self.frame = frame_idx
-            res = self.intra_pose_all({d: frames[d][frame_idx]
-                                       for d in range(cfg.num_drones)})
-            for d in range(cfg.num_drones):
+            images = {d: frames[d][frame_idx] for d in range(D)}
+            res = self.intra_pose_all(images)
+            for d in range(D):
                 out[d].append(res[d])
+            if inter_every and frame_idx % inter_every == 0 and D >= 2:
+                self.inter_pose_round(images)
         return out
 
     def run_chunked(self, frames: Dict[int, list], chunk: int = 16,
@@ -631,17 +682,22 @@ class ColocSession:
         """mainThread with chunked stepping (coloc_tpu's run_chunked):
         bootstrap, then frames in (chunk, D, H, W) blocks through
         intra_pose_chunk, the last partial chunk frame by frame through
-        intra_pose_all so no frame is dropped. Returns the per-drone lists
-        of filtered poses. The options of paths not ported yet raise."""
+        intra_pose_all so no frame is dropped. A fusion round follows every
+        `inter_every` frames rounded up to whole chunks (coloc_tpu's
+        documented deviation from run's per-frame schedule), on the chunk's
+        last frame. Returns the per-drone lists of filtered poses. The
+        options of paths not ported yet raise."""
         cfg = self.config
         D = cfg.num_drones
-        self._refuse(inter_every, D, {"update_map_every": update_map_every,
-                                      "auto_update_map": auto_update_map})
+        self._refuse({"update_map_every": update_map_every,
+                      "auto_update_map": auto_update_map})
         num_frames = min(len(v) for v in frames.values())
         out = {d: [] for d in range(D)}
         f = self._bootstrap(frames, num_frames)
         if not self.map_ready:
             return out
+        inter_chunks = max(1, -(-inter_every // chunk)) if inter_every else 0
+        chunks_done = 0
         while f < num_frames:
             n = min(chunk, num_frames - f)
             if n == chunk:
@@ -659,4 +715,10 @@ class ColocSession:
             for d in range(D):
                 out[d].extend(res[d])
             f += n
+            chunks_done += 1
+            if inter_chunks and chunks_done % inter_chunks == 0 and D >= 2:
+                # the round's frame is the chunk's last
+                self.frame = f - 1
+                self.inter_pose_round({d: frames[d][f - 1] for d in range(D)})
+                self.frame = f
         return out

@@ -278,9 +278,9 @@ def test_run_end_to_end(dataset):
     assert int(ts.filter_bank.steps.sum()) >= 2 * (FRAMES - 2)
 
 
-@pytest.mark.parametrize("what", ["inter_every", "update_map_every", "cull_map_every",
+@pytest.mark.parametrize("what", ["update_map_every", "cull_map_every",
                                   "out_dir", "model_F", "model_H", "three_drones",
-                                  "chunked_inter_every", "chunked_update_map_every",
+                                  "chunked_update_map_every",
                                   "chunked_auto_update_map"])
 def test_unported_paths_raise(dataset, what):
     frames, _ = dataset
@@ -305,9 +305,8 @@ def test_unported_paths_raise(dataset, what):
     entry = ts.run
     if what.startswith("chunked_"):
         entry, what = ts.run_chunked, what[len("chunked_"):]
-    kw = {"inter_every": 3} if what == "inter_every" else {"inter_every": 0, what: 2}
-    with pytest.raises(NotImplementedError, match="A7" if what == "inter_every" else "A8"):
-        entry(frames, **kw)
+    with pytest.raises(NotImplementedError, match="A8"):
+        entry(frames, **{what: 2})
     assert not ts.map_ready                      # raised before any work
 
 
