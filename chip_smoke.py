@@ -87,6 +87,15 @@ matcher against a 262144-row bank. Phases:
                 from identical inputs and draws, CHECKED frames; frames/s, step
                 p50/p99 captured against eager in turns, graph nodes and
                 host reads a frame, the idle share, capture time
+  4j bootstrap — the rest of the bootstrap: init_map over four drones
+                (6 pairs with B6-B9, 2 P3P resections with B2/B3; launches,
+                host reads, a profile, p50), J_FRAMES eager frames, a
+                CHUNK-frame chunk from CUDA graphs equal to the eager step,
+                a ring round; models F and H at D=2 against the ground
+                truth and the plain CPU path, B9 and B3 "nonzero" at their
+                shapes; update_map's rescale, run(update_map_every=10) and
+                run_chunked(chunk=CHUNK, update_map_every=CHUNK) equal to
+                an eager run
   5. counters — every kernel of each path launched during its phase
 
 Any failed check raises and the script exits non-zero. The last two lines
@@ -118,6 +127,10 @@ CHUNK, CHUNKS, ROUNDS = 16, 2, 3
 CHECKED = 4
 # timed calls of inter_pose and of inter_pose_round (4i)
 FUSION_CALLS = 10
+# 4j: eager frames after each bootstrap, timed calls of init_map and update_map
+J_FRAMES, INIT_CALLS = 10, 5
+# host threads that render the synthetic sessions' frames
+RENDER_THREADS = 4
 WARMUP, ITERS = 10, 100
 # the AKAZE frame op at the reference's CPU preset (bench.py _bench_akaze)
 # and the AKAZE session (bench.py config_akaze)
@@ -168,6 +181,9 @@ PATH_KERNELS = {
     "4g large map": ("k2nn_group", "k2nn"),
     "4h chunked": FRAME_KERNELS + BOOTSTRAP_KERNELS,
     "4i fusion": ("k2nn",) + BOOTSTRAP_KERNELS,
+    "4j bootstrap": FRAME_KERNELS + BOOTSTRAP_KERNELS,
+    "4j model F": ("k2nn", "fast_nms", "extract", "epi_rank"),
+    "4j model H": ("k2nn", "fast_nms", "extract", "ransac_rank"),
 }
 # the phase whose launches the kernels line reports
 LAUNCH_PHASE = {**{name: "4b frame" for name in FRAME_KERNELS},
@@ -381,6 +397,23 @@ def bound(nbytes: float, ops: float, peak: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def rank_bound(ops_c):
+    """B3: bytes of the (Hm, 12) models, (7, M) data and (Hm,) rank; ~44
+    flops a pair, counted over the points whose mask is not 0 (a masked
+    point adds nothing)."""
+    Hm_c, M_c = ops_c[0].shape[-2], ops_c[1].shape[-1]
+    return bound((Hm_c * 13 + 7 * M_c) * 4,
+                 Hm_c * int((ops_c[3] != 0).sum()) * 44.0, FP32_FLOPS)
+
+
+def epi_bound(ops_c):
+    """B9: bytes of the operands and rank; ~70 flops a pair, counted over the
+    points whose mask is not 0 (a masked point adds nothing)."""
+    Hm_c, M_c = ops_c[0].shape[0], ops_c[1].shape[1]
+    return bound((Hm_c * 28 + 28 * M_c + 1) * 4,
+                 Hm_c * int((ops_c[2] != 0).sum()) * 70.0, FP32_FLOPS)
+
+
 def print_stages(torch, np, tag, run, n):
     """Stage times of run(f, mark) over n frames: CUDA events recorded by
     the path's `mark(stage)` hook after each stage, p50 per stage."""
@@ -403,10 +436,21 @@ def print_stages(torch, np, tag, run, n):
         + f" ms; sum {sum(np.percentile(v, 50) for v in stage_ms.values()):.3f} ms")
 
 
-def profile_frames(torch, tag, run, n, per=1):
+def device_kernels(torch, prof):
+    """[(name, us)] of the device's events in a torch.profiler trace, read
+    from its raw kineto events: the ones and times that prof.events()
+    gives with device type CUDA, without the host-side event tree that
+    prof.events() builds first (seconds for a trace of a bootstrap)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
+def profile_frames(torch, tag, run, n, per=1, unit="frame"):
     """run(f) for n calls of `per` frames each under torch.profiler: device
     kernels a frame, device busy and idle share, the largest device
-    kernels."""
+    kernels; `unit` names what one of the n x per counts is."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -416,20 +460,19 @@ def profile_frames(torch, tag, run, n, per=1):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     n *= per
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    kernels = device_kernels(torch, prof)
+    busy_us = sum(us for _, us in kernels)
     if busy_us <= 0:
         print(f"[{tag} profile] the profiler saw no device time: not measured")
         return
-    print(f"[{tag} profile] {len(kernels) / n:.0f} device kernels a frame, device "
-          f"busy {busy_us / n / 1e3:.3f} ms of {wall_us / n / 1e3:.3f} ms a frame "
+    print(f"[{tag} profile] {len(kernels) / n:.0f} device kernels a {unit}, device "
+          f"busy {busy_us / n / 1e3:.3f} ms of {wall_us / n / 1e3:.3f} ms a {unit} "
           f"({100.0 - 100.0 * busy_us / wall_us:.1f}% idle, profiler on)")
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us in kernels:
+        by_name[name] = by_name.get(name, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[{tag} profile] device us a frame, largest kernels: " + "; ".join(
+    print(f"[{tag} profile] device us a {unit}, largest kernels: " + "; ".join(
         f"{us / n:.1f} {name[:60]}" for name, us in top))
     # the port's own kernels are the ones in an anonymous namespace at the
     # top level (a template's name starts with its return type, void);
@@ -437,7 +480,7 @@ def profile_frames(torch, tag, run, n, per=1):
     ours = {name.split("::", 1)[1].split("(", 1)[0]: us for name, us in by_name.items()
             if name.removeprefix("void ").startswith("(anonymous namespace)::")
             and "at::" not in name}
-    print(f"[{tag} profile] the port's kernels, device us a frame: " + "; ".join(
+    print(f"[{tag} profile] the port's kernels, device us a {unit}: " + "; ".join(
         f"{name} {us / n:.1f}" for name, us in sorted(ours.items(), key=lambda kv: -kv[1])))
 
 
@@ -480,6 +523,19 @@ def shared_features(np, a, b):
     bits = [np.unpackbits(np.ascontiguousarray(x).view(np.uint8), axis=-1)
             for x in (a.desc[av][shared], b.desc[bv][pair[shared]])]
     return float(shared.mean()), float((bits[0] == bits[1]).mean())
+
+
+def render_frames(np, synthetic, scene, trajs, n):
+    """Frames 0..n-1 of each trajectory (R (F, 3, 3), C (F, 3)) as float32
+    images, {i: [image, ...]} for trajs[i], rendered by RENDER_THREADS host
+    threads (numpy's array passes release the GIL; each image is the same
+    as a serial render's)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = [(R[f], C[f]) for R, C in trajs for f in range(n)]
+    with ThreadPoolExecutor(RENDER_THREADS) as pool:
+        imgs = list(pool.map(lambda j: synthetic.render(scene, *j).astype(np.float32), jobs))
+    return {i: imgs[i * n:(i + 1) * n] for i in range(len(trajs))}
 
 
 def bench_scene(np, K):
@@ -697,7 +753,7 @@ def phase_4i(torch, np, dev, card, cfg_d, Ks2, dists2, sess, frames, traj, frame
 
     from coloc_tpu_torch import convert, session
     from coloc_tpu_torch.matching import match_pair
-    from coloc_tpu_torch.ops import dispatch
+    from coloc_tpu_torch.ops import dispatch, ransac_rank
     from coloc_tpu_torch.parallel import mesh
     from coloc_tpu_torch.ransac import sample_indices
     from coloc_tpu_torch.types import Features
@@ -720,13 +776,26 @@ def phase_4i(torch, np, dev, card, cfg_d, Ks2, dists2, sess, frames, traj, frame
                 src.pose.C, src.pose.R, out.rel.C)]
         return cpu[0] + eye, cpu[1] + cpu[2] + eye, cpu[3], cpu[4] + cpu[5].T @ cpu[6]
 
+    epi_calls, real_epi = [], ransac_rank.epi_rank
+
+    def capture_epi(*args, **kw):
+        epi_calls.append([t.contiguous() for t in args[:4]])
+        return real_epi(*args, **kw)
+
     mesh.inter_pose_device = recording_core
+    ransac_rank.epi_rank = capture_epi
     try:
         # the round on the last frame, its draws from the session's generator
         dispatch.reset_launch_counts()
         res = sess.inter_pose_round(images)
         torch.cuda.synchronize()
         counts["4i fusion"] = launches = dispatch.launch_counts()
+        ransac_rank.epi_rank = real_epi
+        ops_r = epi_calls[0]
+        b = epi_bound(ops_r)
+        print(f"[4i epi_rank] the round's B9 call: Hm={ops_r[0].shape[0]} x "
+              f"M={ops_r[1].shape[1]}, {int((ops_r[2] != 0).sum())} points unmasked; bound "
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']})")
         check(set(res) == {1} and len(outs) == 1, f"4i: the round fused {sorted(res)}")
         out = outs[0]
         n_common, scale = int(out.diag.n_common), float(out.scale)
@@ -796,6 +865,7 @@ def phase_4i(torch, np, dev, card, cfg_d, Ks2, dists2, sess, frames, traj, frame
               f"4i card vs CPU: scale {d_scale:.2e} relative, fused position {d_pos:.2e}")
     finally:
         mesh.inter_pose_device = real_core
+        ransac_rank.epi_rank = real_epi
 
     # inter_pose p50/p99 (features given, the fusion core alone) and the
     # whole round (detection included), CUDA events after a warm-up
@@ -826,10 +896,10 @@ def phase_4i(torch, np, dev, card, cfg_d, Ks2, dists2, sess, frames, traj, frame
         sess.inter_pose_round(images)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    kernels = device_kernels(torch, prof)
+    busy_us = sum(us for _, us in kernels)
     if busy_us > 0:
-        each = {tag: sum(e.time_range.elapsed_us() for e in kernels if k in e.name)
+        each = {tag: sum(us for name, us in kernels if k in name)
                 for tag, k in (("B1", "k2nn_mma_kernel"), ("B6", "front_kernel"),
                                ("B7", "dk_kernel"), ("B8", "polish_kernel"),
                                ("B9", "epi_rank_kernel"))}
@@ -840,8 +910,8 @@ def phase_4i(torch, np, dev, card, cfg_d, Ks2, dists2, sess, frames, traj, frame
                           for tag, us in each.items())
               + f"; B6-B9 {sum(each[t] for t in ('B6', 'B7', 'B8', 'B9')):.1f} us")
         by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        for name, us in kernels:
+            by_name[name] = by_name.get(name, 0.0) + us
         print("[4i profile] device us a round, largest kernels: " + "; ".join(
             f"{us:.1f} {name[:60]}" for name, us in sorted(by_name.items(),
                                                              key=lambda kv: -kv[1])[:8]))
@@ -901,6 +971,390 @@ def phase_4i(torch, np, dev, card, cfg_d, Ks2, dists2, sess, frames, traj, frame
           f"the first round)")
 
 
+def phase_4j(torch, np, dev, card, opts, K, scene, cfg_d, sess, frames, traj, frames_h,
+             traj_h, counts):
+    """The rest of the bootstrap on the card. D = 4: init_map through
+    reconstruct_scene (6 pairs, 2 P3P resections) with its launches, host
+    reads and a profile, INIT_CALLS timed calls, J_FRAMES eager frames of
+    intra_pose_all, a run_chunked chunk from CUDA graphs held to the eager
+    step with torch.equal, a ring round. Models F and H at D = 2: against
+    the ground truth, their two-view estimate against the plain CPU path
+    from the same features and draws, B9 (F) and B3's "nonzero" mode (H)
+    at their shapes, then J_FRAMES frames.
+    update_map on 4d's session, then run(update_map_every=10) and
+    run_chunked(chunk=CHUNK, update_map_every=CHUNK) over 4h's frames, the
+    latter held to an eager run of the same schedule with torch.equal."""
+    from coloc_tpu_torch import config, robust, session
+    from coloc_tpu_torch.fusion.kalman import FilterBank
+    from coloc_tpu_torch.geometry import camera as cam_ops, essential, homography
+    from coloc_tpu_torch.geometry.camera import Camera
+    from coloc_tpu_torch.io import synthetic
+    from coloc_tpu_torch.matching import match_maps, match_pair
+    from coloc_tpu_torch.ops import dispatch, ransac_rank
+    from coloc_tpu_torch.ransac import sample_indices
+    from coloc_tpu_torch.utils import compute_scale_difference
+
+    NB = cfg_d.ransac.num_hypotheses
+    t_4j = time.perf_counter()
+
+    def lap(part):
+        print(f"[time] 4j: {part} at {time.perf_counter() - t_4j:.1f} s into 4j")
+
+    def timed(fn, n):
+        """fn() n times, CUDA events -> (first result, ms per call)."""
+        ms, first = [], None
+        for i in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            first = out if i == 0 else first
+        return first, ms
+
+    def tensors(p):
+        return (p.pose.R, p.pose.C, p.cov, p.rmse, p.n_tracks, p.success)
+
+    def localize_frames(tag, s, imgs, trj, fs, anchor=0):
+        """intra_pose_all on frames fs: every drone localized, rotation error
+        against the ground truth (the world frame is drone `anchor`'s
+        camera at frame 0) median < 1 deg, max < 2 deg."""
+        D, errs, ms = s.config.num_drones, [], []
+        for f in fs:
+            s.frame = f
+            out, t = timed(lambda: s.intra_pose_all({d: imgs[d][f] for d in range(D)}), 1)
+            ms += t
+            for d in range(D):
+                check(bool(out[d].success), f"{tag} frame {f} drone {d}: localization failed")
+                R_gt = torch.from_numpy(trj[d][0][f] @ trj[anchor][0][0].T).to(dev)
+                errs.append(rotation_error(torch, out[d].pose.R, R_gt))
+        deg = np.degrees(np.asarray(errs))
+        check(np.median(deg) < 1.0 and deg.max() < 2.0,
+              f"{tag}: rotation error median {np.median(deg):.3f}, max {deg.max():.3f} deg")
+        return deg, ms
+
+    # ---- D = 4: four drones of the bench scene on 4h's trajectory, its
+    # frames reused for drones 0 and 1 (a render is a numpy pass on the host)
+    D4 = 4
+    n4 = 1 + J_FRAMES + CHUNK
+    traj4 = list(traj_h) + [synthetic.trajectory(len(frames_h[0]), d) for d in range(2, D4)]
+    more = render_frames(np, synthetic, scene, traj4[2:], n4)
+    frames4 = {d: frames_h[d][:n4] if d < 2 else more[d - 2] for d in range(D4)}
+    first4 = {d: frames4[d][0] for d in range(D4)}
+    lap("drones 2 and 3 rendered")
+    cfg4 = config.ColocConfig(num_drones=D4, detector=opts)
+    Ks4, dists4 = np.stack([K] * D4), np.zeros((D4, 3), np.float32)
+    sess4 = session.ColocSession(cfg4, Ks4, dists4, seed=SEED)    # cuda:0 untold
+    check(sess4.device == dev, f"ColocSession chose {sess4.device}, not {dev}")
+    dispatch.reset_launch_counts()
+    (ok, ms4) = timed(lambda: sess4.init_map(first4), 1)
+    counts["4j bootstrap"] = boot = dispatch.launch_counts()
+    check(ok and sess4.map_ready and sess4.scene.num_views == D4, "4j: D=4 init_map failed")
+    n_lm = int(sess4.mapdb.valid.sum())
+    cov = sess4.bootstrap_ba.cov
+    check(n_lm >= 8, f"4j: D=4 init_map kept {n_lm} landmarks < 8")
+    check(cov.shape == (6, 6) and bool(torch.isfinite(cov).all()),
+          "4j: the D=4 bootstrap covariance is not a finite 6x6")
+    want = dict(k2nn=6, fivept_front=6, fivept_dk=6, fivept_polish=6, epi_rank=6, p3p=2,
+                ransac_rank=2)
+    check(all(boot[k] == v for k, v in want.items()),
+          f"4j: a D=4 bootstrap launched {boot}, not {want} (6 pairs, 2 resections)")
+    views = sess4.bootstrap_views
+    print(f"[4j bootstrap] D=4 init_map: {ms4[0]:.3f} ms (first call); seed pair "
+          f"{tuple(views[:2])}, resected {views[2:]}, {int(sess4.bootstrap_geo.n_inliers)} seed "
+          f"inliers, {n_lm} landmarks, BA {int(sess4.bootstrap_ba.iterations)} LM iterations, "
+          f"rmse {float(sess4.bootstrap_ba.rmse):.4f} px; launches {boot}  ({card})")
+    lap("the first D=4 init_map done")
+    _, ms4 = timed(lambda: sess4.init_map(first4), INIT_CALLS)
+    _, reads = host_reads(torch, lambda: sess4.init_map(first4))
+    print(f"[4j bootstrap] D=4 init_map {percentiles(np, ms4)} over {INIT_CALLS} calls; "
+          f"{reads} host reads a bootstrap  ({card})")
+    profile_frames(torch, "4j bootstrap D=4", lambda f: sess4.init_map(first4), 1,
+                   unit="bootstrap")
+    check(sess4.init_map(first4), "4j: the last D=4 init_map failed")
+    anchor = sess4.bootstrap_views[0]
+    lap("the D=4 init_map timed and profiled")
+    deg, ms = localize_frames("4j D=4", sess4, frames4, traj4, range(1, J_FRAMES + 1), anchor)
+    print(f"[4j frames] D=4: {J_FRAMES} frames of intra_pose_all, every drone localized; "
+          f"rotation error median {np.median(deg):.4f}, max {deg.max():.4f} deg "
+          f"(world frame: drone {anchor}); {percentiles(np, ms[1:])} after the first  ({card})")
+
+    # one chunk from CUDA graphs against the eager step from the same state
+    # and generator
+    sess_e = session.ColocSession(cfg4, Ks4, dists4, seed=SEED)
+    sess_e.mapdb, sess_e.scene, sess_e.map_ready = sess4.mapdb, sess4.scene, True
+    sess_e.filter_bank = FilterBank(*(t.clone() for t in sess4.filter_bank))
+    sess_e.lm_support = sess4.lm_support.clone()
+    sess_e.lm_last_seen = sess4.lm_last_seen.clone()
+    sess_e.generator.set_state(sess4.generator.get_state())
+    chunk4 = {d: frames4[d][1 + J_FRAMES:] for d in range(D4)}
+    t0 = time.perf_counter()
+    out_c = sess4.run_chunked(chunk4, chunk=CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g = sess4._graphs
+    check(g is not None and g.mapdb is sess4.mapdb, "4j: the D=4 chunk was not captured")
+    equal, errs = True, []
+    for i in range(CHUNK):
+        sess_e.frame = i
+        res = sess_e.intra_pose_all({d: chunk4[d][i] for d in range(D4)})
+        for d in range(D4):
+            pc = out_c[d][i]
+            check(bool(pc.success), f"4j chunk frame {i} drone {d}: localization failed")
+            equal = equal and all(torch.equal(a, b) for a, b in zip(tensors(pc),
+                                                                     tensors(res[d])))
+            f = 1 + J_FRAMES + i
+            R_gt = torch.from_numpy(traj4[d][0][f] @ traj4[anchor][0][0].T).to(dev)
+            errs.append(rotation_error(torch, pc.pose.R, R_gt))
+    equal = equal and all(torch.equal(a, b) for a, b in zip(sess4.filter_bank,
+                                                             sess_e.filter_bank))
+    check(equal, "4j: the captured D=4 chunk differs from the eager step")
+    deg = np.degrees(np.asarray(errs))
+    check(np.median(deg) < 1.0 and deg.max() < 2.0,
+          f"4j chunk: rotation error median {np.median(deg):.3f}, max {deg.max():.3f} deg")
+    print(f"[4j chunked] D=4 run_chunked(chunk={CHUNK}) from CUDA graphs in {wall:.3f} s "
+          f"(capture {g.capture_seconds:.3f} s): every frame and the filter bank bit-equal "
+          f"to the eager step from the same state and draws; rotation error median "
+          f"{np.median(deg):.4f}, max {deg.max():.4f} deg  ({card})")
+    rr = sess4.inter_pose_round({d: frames4[d][n4 - 1] for d in range(D4)})
+    fused = [d for d, r in rr.items() if r is not None]
+    check(set(rr) == set(range(D4)) and len(fused) >= 2,
+          f"4j: the ring round fused {fused} of {sorted(rr)}")
+    check(all(bool(torch.isfinite(rr[d].pos).all() & torch.isfinite(rr[d].cov).all())
+              for d in fused), "4j: a ring fusion is not finite")
+    print(f"[4j ring] inter_pose_round at D=4 (ring): destinations {sorted(rr)}, fused {fused}")
+
+    lap("the D=4 frames, chunk and ring round done")
+    # ---- models F and H at D = 2 -----------------------------------------
+    Ks2, dists2 = np.stack([K, K]), np.zeros((2, 3), np.float32)
+    scene_p = synthetic.make_scene(H, W, K, seed=SCENE_SEED, depths=(8.0,))
+    traj_p = [synthetic.trajectory(J_FRAMES + 1, d) for d in range(2)]
+    frames_p = render_frames(np, synthetic, scene_p, traj_p, J_FRAMES + 1)
+    for model, imgs, trj, S in (("F", frames, traj, 7), ("H", frames_p, traj_p, 4)):
+        cfg_m = config.ColocConfig(num_drones=2, detector=opts, model=model)
+        first = {d: imgs[d][0] for d in range(2)}
+        calls, real = [], (ransac_rank.epi_rank if model == "F" else ransac_rank.ladder_rank)
+
+        def capture(*args, **kw):
+            calls.append(([t.contiguous() for t in args[:4]], args[4:], kw))
+            return real(*args, **kw)
+
+        s = session.ColocSession(cfg_m, Ks2, dists2, seed=SEED)
+        name = "epi_rank" if model == "F" else "ladder_rank"
+        setattr(ransac_rank, name, capture)
+        dispatch.reset_launch_counts()
+        try:
+            ok = s.init_map(first)
+            torch.cuda.synchronize()
+        finally:
+            setattr(ransac_rank, name, real)
+        counts[f"4j model {model}"] = launches = dispatch.launch_counts()
+        check(ok and s.map_ready, f"4j model {model}: init_map failed")
+        check(len(calls) == 1, f"4j model {model}: {len(calls)} rank calls")
+        (R0, C0), (R1, C1) = ((trj[d][0][0], trj[d][1][0]) for d in (0, 1))
+        R_gt = torch.from_numpy(R1 @ R0.T).to(dev).double()
+        C_gt = torch.from_numpy(R0 @ (C1 - C0)).to(dev).double()
+        C1e = s.scene.Cs[1].double()
+        dR_gt = rotation_error(torch, s.scene.Rs[1].double(), R_gt)
+        dC_gt = float(torch.arccos(torch.clamp(C1e @ C_gt / (C1e.norm() * C_gt.norm()), -1, 1)))
+        check(dR_gt < 1e-2 and dC_gt < 0.1,
+              f"4j model {model}: drone 1 {dR_gt:.2e} rad, baseline {dC_gt:.2e} rad from the "
+              f"ground truth")
+        _, ms = timed(lambda: s.init_map(first), INIT_CALLS)
+        print(f"[4j model {model}] init_map: {int(s.bootstrap_geo.n_inliers)} inliers, "
+              f"{int(s.mapdb.valid.sum())} landmarks; drone 1 {dR_gt:.2e} rad, baseline "
+              f"{dC_gt:.2e} rad from the ground truth; {percentiles(np, ms)} over "
+              f"{INIT_CALLS} calls; launches {launches}  ({card})")
+        # the rank call at this path's shape: equal to its twin, timed
+        ops, rest, kw = calls[0]
+        if model == "F":
+            rk = ransac_rank._epi_rank_cuda(*ops, 2, 5)
+            rp = ransac_rank.epi_rank_plain(*ops)
+            fn, kern, b = (lambda: ransac_rank._epi_rank_cuda(*ops, 2, 5), "epi_rank_kernel",
+                           epi_bound(ops))
+            plain = lambda: ransac_rank.epi_rank_plain(*ops)  # noqa: E731
+            check(launches["epi_rank"] == 1, f"4j model F: B9 launched {launches['epi_rank']}")
+        else:
+            thr, zmode = rest[0], rest[1]
+            check(zmode == "nonzero", f"4j model H: the ladder ranked in zmode {zmode!r}")
+            rk = ransac_rank._ladder_rank_cuda(*ops, thr, zmode, 2, 5)
+            rp = ransac_rank.ladder_rank_plain(*ops, thr, zmode)
+            fn, kern, b = (lambda: ransac_rank._ladder_rank_cuda(*ops, thr, zmode, 2, 5),
+                           "rank_kernel", rank_bound(ops))
+            plain = lambda: ransac_rank.ladder_rank_plain(*ops, thr, zmode)  # noqa: E731
+            check(launches["ransac_rank"] == 1,
+                  f"4j model H: B3 launched {launches['ransac_rank']}")
+        torch.cuda.synchronize()
+        check(torch.equal(rk, rp), f"4j model {model}: the rank kernel differs from its twin")
+        Hm_c, M_c = ops[0].shape[0], ops[1].shape[1]
+        timed_pair(f"4j model {model}: {'epi_rank' if model == 'F' else 'ransac_rank nonzero'}"
+                   f" at Hm={Hm_c} x M={M_c}, "
+                   f"{int((ops[2 if model == 'F' else 3] != 0).sum())} points unmasked",
+                   fn, None, kern, card, b)
+        print(f"[4j model {model}] its plain twin at that shape: {cuda_ms(plain):.4f} ms "
+              f"(wrapper, CUDA events)  ({card})")
+        # the two-view estimate on the card and through the plain CPU path
+        # from the same features, matches and minimal samples, RANSAC's
+        # result and the keep-if-better re-fit recorded on each side
+        f0, f1 = s.detect(first[0]), s.detect(first[1])
+        m01 = match_pair(f0, f1, cfg_m.matcher)
+        draws = sample_indices(m01.mask, NB, S, torch.Generator(device=dev).manual_seed(SEED + 11))
+        args = (f0.xy, f1.xy[m01.idx.long()], m01.mask)
+        cams_c = [Camera(K=c.K.cpu(), dist=c.dist.cpu()) for c in s.cams[:2]]
+        rec, real_ransac, real_refit = [], robust.ransac, robust._refit
+
+        def rec_ransac(*a, **k):
+            rec.append(real_ransac(*a, **k))
+            return rec[-1]
+
+        def rec_refit(res, refit_model, scorer, msk):
+            out = real_refit(res, refit_model, scorer, msk)
+            rec.append(torch.equal(out[0], refit_model))
+            return out
+
+        robust.ransac, robust._refit = rec_ransac, rec_refit
+        try:
+            geo_g = robust.relative_pose(model, *args, s.cams[0], s.cams[1], cfg_m.ransac,
+                                         sample_idx=draws)
+            geo_c = robust.relative_pose(model, *(t.cpu() for t in args), *cams_c,
+                                         cfg_m.ransac, sample_idx=draws.cpu())
+        finally:
+            robust.ransac, robust._refit = real_ransac, real_refit
+        (rs_g, kept_g, rs_c, kept_c) = rec
+        R_gt2 = torch.from_numpy(trj[1][0][0] @ trj[0][0][0].T).double()
+        t_gt2 = torch.from_numpy(trj[1][0][0] @ (trj[0][1][0] - trj[1][1][0])).double()
+
+        def dir_err(a, b):
+            a, b = a.cpu().double(), b.cpu().double()
+            return float(torch.arccos(torch.clamp(a @ b / (a.norm() * b.norm()), -1.0, 1.0)))
+
+        dR = rotation_error(torch, geo_g.R.cpu().double(), geo_c.R.double())
+        dt = dir_err(geo_g.t, geo_c.t)
+        gt_g = (rotation_error(torch, geo_g.R.cpu().double(), R_gt2), dir_err(geo_g.t, t_gt2))
+        gt_c = (rotation_error(torch, geo_c.R.double(), R_gt2), dir_err(geo_c.t, t_gt2))
+        ng, nc = int(geo_g.n_inliers), int(geo_c.n_inliers)
+        flips = int((geo_g.inliers.cpu() != geo_c.inliers).sum())
+        mg, mc = rs_g.model.cpu().double().flatten(), rs_c.model.double().flatten()
+        mg, mc = mg / mg.norm(), mc / mc.norm()
+        apart = float(torch.min((mg - mc).norm(), (mg + mc).norm()))
+        print(f"[4j model {model} reference] relative_pose card vs CPU plain path, the same "
+              f"features, matches and draws: RANSAC kept {int(rs_g.n_inliers)} / "
+              f"{int(rs_c.n_inliers)} inliers, models {apart:.2e} apart (unit norm), "
+              f"re-fit kept {kept_g} / {kept_c}; final inliers {ng} / {nc} "
+              f"({flips} differ), rotation {dR:.2e} rad, translation direction {dt:.2e} rad; "
+              f"from the ground truth: card {gt_g[0]:.2e} / {gt_g[1]:.2e}, CPU {gt_c[0]:.2e} / "
+              f"{gt_c[1]:.2e} rad")
+        check(bool(geo_g.success) and bool(geo_c.success), f"4j model {model}: a pose failed")
+        # the float32 minimal solvers round differently on the card, so a
+        # borderline inlier or a near-tied NFA can change RANSAC's model
+        # and the keep-if-better choice (ROADMAP C16): both held to the
+        # ground truth
+        check(abs(ng - nc) <= 0.02 * nc and max(gt_g[0], gt_c[0]) < 1e-2
+              and max(gt_g[1], gt_c[1]) < 0.15,
+              f"4j model {model} card vs CPU: inliers {ng} / {nc}, from the ground "
+              f"truth {gt_g} / {gt_c} rad")
+        # the re-fit and the decomposition from one inlier set (the CPU's
+        # RANSAC inliers) on both devices: within 1e-3 rad
+        inl = rs_c.inliers
+        one_set = []
+        for dv, cams_v in ((dev, s.cams[:2]), (torch.device("cpu"), cams_c)):
+            a1, a2 = args[0].to(dv), args[1].to(dv)
+            w = inl.to(dv).to(torch.float32)
+            if model == "F":
+                u1 = cam_ops.undistort_pixel(cams_v[0], a1)
+                u2 = cam_ops.undistort_pixel(cams_v[1], a2)
+                E = cams_v[1].K.T @ essential.fundamental_8pt(u1, u2, weights=w) @ cams_v[0].K
+                one_set.append(essential.decompose_essential(
+                    E, cam_ops.normalize(cams_v[0], u1), cam_ops.normalize(cams_v[1], u2),
+                    inl.to(dv)))
+            else:
+                x1 = cam_ops.undistort(cams_v[0], cam_ops.normalize(cams_v[0], a1))
+                x2 = cam_ops.undistort(cams_v[1], cam_ops.normalize(cams_v[1], a2))
+                Hm = homography.four_point(x1, x2, weights=w)
+                one_set.append(homography.decompose_homography(
+                    Hm, x1, x2, inl.to(dv), cfg_m.ransac.chirality_ratio)[:2])
+        dR1 = rotation_error(torch, one_set[0][0].cpu().double(), one_set[1][0].double())
+        dt1 = dir_err(one_set[0][1], one_set[1][1])
+        print(f"[4j model {model} reference] the re-fit and decomposition from one inlier set "
+              f"({int(inl.sum())}, the CPU's RANSAC inliers), card vs CPU: rotation {dR1:.2e} "
+              f"rad, translation direction {dt1:.2e} rad")
+        check(dR1 < 1e-3 and dt1 < 1e-3,
+              f"4j model {model} re-fit from one inlier set, card vs CPU: {dR1:.2e} / "
+              f"{dt1:.2e} rad")
+        check(s.init_map(first), f"4j model {model}: the last init_map failed")
+        deg, _ = localize_frames(f"4j model {model}", s, imgs, trj, range(1, J_FRAMES + 1))
+        print(f"[4j model {model} frames] {J_FRAMES} frames of intra_pose_all on the model-"
+              f"{model} map, every drone localized; rotation error median "
+              f"{np.median(deg):.4f}, max {deg.max():.4f} deg")
+
+    lap("models F and H done")
+    # ---- update_map and the map-update schedule --------------------------
+    old = sess.mapdb
+    ok = sess.update_map({d: frames[d][J_FRAMES] for d in range(2)})
+    check(ok and sess.mapdb is not old, "4j: update_map did not rebuild the map")
+    mm = match_maps(sess.mapdb, old, cfg_d.matcher)
+    n_common = int((mm.mask & sess.mapdb.valid).sum())
+    scale = float(compute_scale_difference(sess.mapdb, old, mm))
+    check(n_common >= 2 and abs(scale - 1.0) < 0.05,
+          f"4j update_map: {n_common} common landmarks, scale {scale:.4f} against the old map")
+    _, ms = timed(lambda: sess.update_map({d: frames[d][J_FRAMES] for d in range(2)}),
+                  INIT_CALLS)
+    print(f"[4j update_map] frame {J_FRAMES}: {int(sess.mapdb.valid.sum())} landmarks, "
+          f"{n_common} common with the old map, scale after the rescale {scale:.5f}; "
+          f"{percentiles(np, ms)} over {INIT_CALLS} calls  ({card})")
+
+    def recorded(s):
+        log, real = [], s.update_map
+
+        def update_map(images, **kw):
+            ok = real(images, **kw)
+            log.append((s.frame, ok))
+            return ok
+        s.update_map = update_map
+        return log
+
+    n_h = len(frames_h[0])
+    s_r = session.ColocSession(cfg_d, np.stack([K, K]), np.zeros((2, 3), np.float32), seed=SEED)
+    log = recorded(s_r)
+    out = s_r.run(frames_h, inter_every=0, update_map_every=10)
+    check(log == [(f, True) for f in range(10, n_h, 10)], f"4j run: map updates {log}")
+    check(all(bool(p.success) for d in range(2) for p in out[d])
+          and all(len(out[d]) == n_h - 1 for d in range(2)), "4j run: a frame not localized")
+    print(f"[4j run] run(update_map_every=10) over {n_h - 1} frames: every frame of both "
+          f"drones localized, the map rebuilt on frames {[f for f, _ in log]}")
+    captures, real_init = [], session._StepGraphs.__init__
+
+    def counted_init(self, s, inject=False):
+        captures.append(s.mapdb)
+        real_init(self, s, inject)
+
+    s_c = session.ColocSession(cfg_d, np.stack([K, K]), np.zeros((2, 3), np.float32), seed=SEED)
+    log_c = recorded(s_c)
+    session._StepGraphs.__init__ = counted_init
+    try:
+        out_c = s_c.run_chunked(frames_h, chunk=CHUNK, update_map_every=CHUNK)
+    finally:
+        session._StepGraphs.__init__ = real_init
+    s_e = session.ColocSession(cfg_d, np.stack([K, K]), np.zeros((2, 3), np.float32), seed=SEED)
+    log_e = recorded(s_e)
+    out_e = s_e.run(frames_h, inter_every=0, update_map_every=CHUNK)
+    n_up = (n_h - 1) // CHUNK
+    check(len(log_c) == len(log_e) == n_up and all(ok for _, ok in log_c + log_e),
+          f"4j run_chunked: map updates {log_c}, eager run {log_e}")
+    check(len(captures) == n_up and len(set(map(id, captures))) == n_up,
+          f"4j run_chunked: {len(captures)} captures for {n_up} chunks")
+    equal = all(torch.equal(a, b) for d in range(2) for p, q in zip(out_c[d], out_e[d])
+                for a, b in zip(tensors(p), tensors(q)))
+    equal = equal and torch.equal(s_c.mapdb.X, s_e.mapdb.X)
+    check(equal, "4j run_chunked with map updates differs from the eager run")
+    print(f"[4j run_chunked] run_chunked(chunk={CHUNK}, update_map_every={CHUNK}) over "
+          f"{n_h - 1} frames: {len(captures)} captures (one for each map), the map rebuilt after "
+          f"each chunk; every frame and the final map bit-equal to run(update_map_every="
+          f"{CHUNK}) stepped eagerly from the same seed")
+
+
 def sync_check(torch, cfg_x, sess, images, tag, mode="warn"):
     """One eager frame step on the card with its draws injected and the
     pose LM's exit left to its done mask, under torch.cuda's sync debug
@@ -932,9 +1386,14 @@ def sync_check(torch, cfg_x, sess, images, tag, mode="warn"):
 
 
 def main(argv=None) -> int:
+    t_main = time.perf_counter()
     import argparse
 
     import torch
+
+    def lap(phase):
+        """The script's wall time when `phase` starts."""
+        print(f"[time] phase {phase} starts at {time.perf_counter() - t_main:.1f} s")
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
@@ -1014,6 +1473,7 @@ def main(argv=None) -> int:
     cfg = config.ColocConfig()
     results = {}
 
+    lap("3")
     # ---- phase 3: kernels against their plain twins -------------------
     # B1: Q=1024 x T=4096, duplicates of query 0 planted in other bank
     # tiles, a band of invalid rows that holds query 5's own row
@@ -1261,10 +1721,6 @@ def main(argv=None) -> int:
             check(parent["ransac_rank"](*launch) == 0, "the parent's ransac_rank did not launch")
             return out
         return new, old
-
-    def rank_bound(ops_c):
-        Hm_c, M_c = ops_c[0].shape[0], ops_c[1].shape[1]
-        return bound((Hm_c * 13 + 7 * M_c) * 4, Hm_c * M_c * 44.0, FP32_FLOPS)
 
     results["ransac_rank"] = dict(
         max_abs_err=0.0,
@@ -1643,13 +2099,6 @@ def main(argv=None) -> int:
             return out
         return new, old
 
-    def epi_bound(ops_c):
-        """Bytes of the operands and rank; ~70 flops a pair, counted over the
-        points whose mask is not 0 (a masked point adds nothing)."""
-        Hm_c, M_c = ops_c[0].shape[0], ops_c[1].shape[1]
-        return bound((Hm_c * 28 + 28 * M_c + 1) * 4,
-                     Hm_c * int((ops_c[2] != 0).sum()) * 70.0, FP32_FLOPS)
-
     def check_epi(tag, ops_c, n_rungs=5):
         """B9 against its twin, torch.equal, one launch; with --parent, the
         parent's ranks that differ from the twin's counted, and this tree's
@@ -2009,6 +2458,7 @@ def main(argv=None) -> int:
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max |err| "
               f"{r['max_abs_err']:.3e}  ({card})")
 
+    lap("4")
     # ---- phase 4: the slice end to end ----------------------------------
     bank = pack_map_bank(mapdb)
     lat_ms = []
@@ -2064,6 +2514,7 @@ def main(argv=None) -> int:
     print(f"[4 reference] frame 0 card vs CPU plain path: n_tracks "
           f"{int(pg.n_tracks)} / {int(pc.n_tracks)}, |dR| {dR:.2e}, |dC| {dC:.2e}")
 
+    lap("4b")
     # ---- phase 4b: the full-frame op, camera frame in, pose out ---------
     frame_t = torch.from_numpy(frame).to(dev)
     feats0 = frontend.detect_and_describe(frame_t, opts)
@@ -2134,6 +2585,7 @@ def main(argv=None) -> int:
     check(shared >= 0.98, f"card vs CPU: {shared:.4f} of keypoints shared < 0.98")
     check(bits >= 0.99, f"card vs CPU: {bits:.4f} of bits equal < 0.99")
 
+    lap("4c")
     # ---- phase 4c: the session's frame step, 2 drones -------------------
     # the batched step (one frontend, one 2-NN, one P3P launch of D x 256
     # samples, one B3 launch, one LM over the drone axis), timed in turns
@@ -2202,11 +2654,11 @@ def main(argv=None) -> int:
         cfg_s, imgs, mapdb_f, bank_f, Ks, dists, fb,
         generator=torch.Generator(device=dev).manual_seed(3100 + f)), 3)
 
+    lap("4d")
     # ---- phase 4d: the session, two drones' frames in, poses out ---------
     scene = synthetic.make_scene(H, W, K, seed=SCENE_SEED)
     traj = [synthetic.trajectory(SESSION_FRAMES + 1, d) for d in range(2)]
-    frames = {d: [synthetic.render(scene, traj[d][0][f], traj[d][1][f]).astype(np.float32)
-                  for f in range(SESSION_FRAMES + 1)] for d in range(2)}
+    frames = render_frames(np, synthetic, scene, traj, SESSION_FRAMES + 1)
     first = {0: frames[0][0], 1: frames[1][0]}
     cfg_d = config.ColocConfig(num_drones=2, detector=opts)    # model E, 4096 landmarks
     Ks2, dists2 = np.stack([K, K]), np.zeros((2, 3), np.float32)
@@ -2327,13 +2779,13 @@ def main(argv=None) -> int:
         s_gpu.init_map(first, sample_idx=draws)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    kernels = device_kernels(torch, prof)
+    busy_us = sum(us for _, us in kernels)
     if busy_us > 0:
-        ours = sum(e.time_range.elapsed_us() for e in kernels
-                   if any(k in e.name for k in ("front_kernel", "dk_kernel",
-                                                "polish_kernel", "epi_rank_kernel")))
-        each = {tag: sum(e.time_range.elapsed_us() for e in kernels if k in e.name)
+        ours = sum(us for name, us in kernels
+                   if any(k in name for k in ("front_kernel", "dk_kernel",
+                                              "polish_kernel", "epi_rank_kernel")))
+        each = {tag: sum(us for name, us in kernels if k in name)
                 for tag, k in (("B6", "front_kernel"), ("B7", "dk_kernel"),
                                ("B8", "polish_kernel"), ("B9", "epi_rank_kernel"))}
         print(f"[4d profile] init_map: {len(kernels)} device kernels, device busy "
@@ -2344,15 +2796,16 @@ def main(argv=None) -> int:
     else:
         print("[4d profile] the profiler saw no device time: not measured")
 
+    lap("4i")
     # ---- phase 4i: inter-drone fusion (interPoseEstimator) ----------------
     # 4h's trajectory: two chunks of CHUNK frames after the bootstrap frame
     n_h = CHUNK * CHUNKS + 1
     traj_h = [synthetic.trajectory(n_h, d) for d in range(2)]
-    frames_h = {d: [synthetic.render(scene, traj_h[d][0][f], traj_h[d][1][f]).astype(np.float32)
-                    for f in range(n_h)] for d in range(2)}
+    frames_h = render_frames(np, synthetic, scene, traj_h, n_h)
     phase_4i(torch, np, dev, card, cfg_d, Ks2, dists2, sess, frames, traj, frames_h, traj_h,
              counts)
 
+    lap("4e")
     # ---- phase 4e: the AKAZE frame op (bench.py _bench_akaze) -----------
     from coloc_tpu_torch import akaze
 
@@ -2414,6 +2867,7 @@ def main(argv=None) -> int:
     check(shared >= 0.98, f"AKAZE card vs CPU: {shared:.4f} of keypoints shared < 0.98")
     check(bits >= 0.99, f"AKAZE card vs CPU: {bits:.4f} of bits equal < 0.99")
 
+    lap("4f")
     # ---- phase 4f: the AKAZE session (bench.py config_akaze) -------------
     cfg_a = config.ColocConfig(
         num_drones=2, matcher=matcher_a, max_landmarks=LANDMARKS,
@@ -2421,6 +2875,7 @@ def main(argv=None) -> int:
                                         num_levels=LEVELS, backend="akaze"))
     sess_a, counts["4f akaze session"] = drive_session("4f", cfg_a)
 
+    lap("4g")
     # ---- phase 4g: the large-map matcher, two-stage against brute force ---
     # phase 3's bank (262144 rows, 5% invalid) and planted queries; the
     # accept decisions at the margin threshold must be brute force's
@@ -2468,6 +2923,7 @@ def main(argv=None) -> int:
           f"{percentiles(np, ms_g['brute force'])} over {TWOSTAGE_CALLS} calls each; "
           f"brute force / two-stage {p50['brute force'] / p50['two-stage']:.2f}  ({card})")
 
+    lap("4h")
     # ---- phase 4h: chunked stepping on CUDA graphs (run_chunked) ----------
     # the sync check first: the TRIP step must raise nothing under "error"
     check(not sync_check(torch, cfg_d, sess, imgs, "TRIP"),
@@ -2482,6 +2938,13 @@ def main(argv=None) -> int:
               f"{len(found_a)} sites found")
     phase_4h(torch, np, dev, card, cfg_d, Ks2, dists2, frames_h, traj_h, counts)
 
+    lap("4j")
+    # ---- phase 4j: the rest of the bootstrap: D = 4, models F and H,
+    # update_map and the map-update schedule ----------------------------
+    phase_4j(torch, np, dev, card, opts, K, scene, cfg_d, sess, frames, traj, frames_h, traj_h,
+             counts)
+
+    lap("5")
     # ---- phase 5: each path went through its kernels -------------------
     for phase, names in PATH_KERNELS.items():
         print(f"[5 counters] launches during phase {phase}: {counts[phase]}")

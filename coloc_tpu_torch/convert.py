@@ -1,8 +1,9 @@
 """numpy <-> port state.
 
-The reference's state (Features, MapDB, Camera, FilterBank, Scene,
-TwoViewGeometry, a session's map and filter), taken out of JAX as numpy
-arrays, becomes the port's state here and back. Descriptors cross as a
+The reference's state (Features, Matches, MapDB, Camera, FilterBank, a
+Scene of any number of views, TwoViewGeometry, a session's map and
+filter), taken out of JAX as numpy arrays, becomes the port's state here
+and back. Descriptors cross as a
 bit-preserving view: uint32 in coloc_tpu, int32 in the port (types.py).
 Inputs are any object with the reference's field names whose fields
 np.asarray accepts, so a coloc_tpu NamedTuple can be passed as it is.
@@ -22,7 +23,8 @@ from coloc_tpu_torch.fusion.kalman import FilterBank
 from coloc_tpu_torch.geometry.camera import Camera
 from coloc_tpu_torch.ops.dispatch import default_device
 from coloc_tpu_torch.sfm.reconstruct import Scene
-from coloc_tpu_torch.types import Features, MapDB, Pose, PoseWithCov, TwoViewGeometry
+from coloc_tpu_torch.types import (Features, MapDB, Matches, Pose, PoseWithCov,
+                                   TwoViewGeometry)
 
 
 def _desc_to_torch(desc, device) -> torch.Tensor:
@@ -61,6 +63,12 @@ def mapdb_from_numpy(mapdb: Any, device=None) -> MapDB:
         desc=_desc_to_torch(mapdb.desc, device),
         valid=_bool(mapdb.valid, device),
     )
+
+
+def matches_from_numpy(matches: Any, device=None) -> Matches:
+    device = default_device(device)
+    return Matches(idx=_i32(matches.idx, device), best=_i32(matches.best, device),
+                   second=_i32(matches.second, device))
 
 
 def camera_from_numpy(K, dist=None, device=None) -> Camera:

@@ -70,6 +70,11 @@ def undistort(cam: Camera, xy_d: torch.Tensor) -> torch.Tensor:
     return xy
 
 
+def undistort_pixel(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
+    """get_ud_pixel parity: distorted pixel -> undistorted pixel."""
+    return denormalize(cam, undistort(cam, normalize(cam, uv)))
+
+
 def bearing(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
     """Distorted pixel -> unit bearing vector in the camera frame, (..., 3)."""
     xy = undistort(cam, normalize(cam, uv))
@@ -87,3 +92,8 @@ def project(cam: Camera, R: torch.Tensor, C: torch.Tensor,
             X: torch.Tensor) -> torch.Tensor:
     """World point -> distorted pixel through pose (R, C). X: (..., 3)."""
     return project_cam(cam, (X - C) @ R.T)
+
+
+def depth(R: torch.Tensor, C: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Z coordinate in the camera frame (positive = in front)."""
+    return ((X - C) @ R.T)[..., 2]

@@ -11,11 +11,19 @@ Jacobian comes from torch.func.jacfwd, as coloc_tpu's from jax.jacfwd, and
 its early exit is coloc_tpu's lax.while_loop in done-mask form: a stopped
 loop changes nothing, and the host reads whether it stopped every
 `check_every` steps.
-The 7-point, 8-point and fundamental solvers wait for model F.
+
+Model F's solvers take pixels: seven_point (OpenMVG's SevenPointSolver,
+RobustMatcher.hpp:134-150; up to 3 candidates a sample) and the
+Hartley-normalized fundamental_8pt of the least-squares re-fit;
+eight_point is the linear E. Each takes a leading batch axis. A null
+space from QR or eigh has a free sign (and QR's 2-D basis a free
+rotation), which torch and LAPACK-through-XLA may pick differently: the
+candidate set of F is the same up to sign and scale, not its order.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -25,6 +33,111 @@ from coloc_tpu_torch.geometry import so3
 
 def _homog(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, torch.ones_like(x[:, :1])], dim=-1)
+
+
+def _epipolar_design_rows(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Rows of the epipolar constraint x2^T E x1 = 0: (..., N, 2) -> (..., N, 9)."""
+    u1, v1 = x1[..., 0], x1[..., 1]
+    u2, v2 = x2[..., 0], x2[..., 1]
+    return torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1,
+                        torch.ones_like(u1)], dim=-1)
+
+
+def _smallest_eigvec(A: torch.Tensor) -> torch.Tensor:
+    """(..., 9) eigenvector of the least eigenvalue of A^T A, as (..., 3, 3)."""
+    _, vecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    return vecs[..., :, 0].reshape(A.shape[:-2] + (3, 3))
+
+
+def eight_point(x1, x2, weights=None) -> torch.Tensor:
+    """Linear 8-point E from (..., N >= 8, 2) normalized coords: the least
+    eigenvector of A^T A, projected to singular values (s, s, 0)."""
+    A = _epipolar_design_rows(x1, x2)
+    if weights is not None:
+        A = A * weights[..., None]
+    U, sv, Vt = torch.linalg.svd(_smallest_eigvec(A))
+    sig = (sv[..., 0] + sv[..., 1]) / 2.0
+    diag = torch.stack([sig, sig, torch.zeros_like(sig)], dim=-1)
+    return U @ (diag[..., None] * Vt)
+
+
+def _hartley(x: torch.Tensor, w: torch.Tensor, wsum: torch.Tensor):
+    """Weighted Hartley normalization of (..., N, 2) -> (x', T (..., 3, 3))."""
+    mean = (x * w[..., None]).sum(dim=-2) / wsum[..., None]
+    dist = torch.linalg.norm(x - mean[..., None, :], dim=-1)
+    scale = 2.0 ** 0.5 / ((dist * w).sum(dim=-1) / wsum + 1e-9)
+    z, o = torch.zeros_like(scale), torch.ones_like(scale)
+    T = torch.stack([torch.stack([scale, z, -scale * mean[..., 0]], dim=-1),
+                     torch.stack([z, scale, -scale * mean[..., 1]], dim=-1),
+                     torch.stack([z, z, o], dim=-1)], dim=-2)
+    return (x - mean[..., None, :]) * scale[..., None, None], T
+
+
+def fundamental_8pt(x1, x2, weights=None) -> torch.Tensor:
+    """8-point F with Hartley normalization and the rank-2 projection, from
+    (..., N, 2) pixels; `weights` (..., N) gives the least-squares re-fit
+    over an inlier set. Scaled so F[2, 2] = 1."""
+    w = torch.ones_like(x1[..., 0]) if weights is None else weights
+    wsum = w.sum(dim=-1) + 1e-9
+    x1n, T1 = _hartley(x1, w, wsum)
+    x2n, T2 = _hartley(x2, w, wsum)
+    U, sv, Vt = torch.linalg.svd(_smallest_eigvec(_epipolar_design_rows(x1n, x2n)
+                                                  * w[..., None]))
+    sv = torch.cat([sv[..., :2], torch.zeros_like(sv[..., 2:])], dim=-1)
+    F = T2.transpose(-1, -2) @ (U @ (sv[..., None] * Vt)) @ T1
+    return F / (F[..., 2:3, 2:3] + 1e-12)
+
+
+def seven_point(x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """7-point F: (..., 7, 2) pixels -> (..., 3, 3, 3) candidates and
+    (..., 3) valid. The 2-D null space of the Hartley-normalized design
+    matrix (the last two columns of a complete QR of A^T) spans F1 + lam
+    F2; det = 0 is a cubic in lam, its coefficients from the determinants
+    at lam = 0, 1, -1, 2 by a Vandermonde solve, its roots by the
+    trigonometric form (three real) or Cardano (one real, the other two
+    slots invalid). Each candidate is denormalized and scaled to unit
+    Frobenius norm."""
+    w = torch.ones_like(x1[..., 0])
+    wsum = w.sum(dim=-1)
+    # the mean and the mean distance, as coloc_tpu's unweighted form
+    x1n, T1 = _hartley(x1, w, wsum)
+    x2n, T2 = _hartley(x2, w, wsum)
+    A = _epipolar_design_rows(x1n, x2n)                        # (..., 7, 9)
+    q, _ = torch.linalg.qr(A.transpose(-1, -2), mode="complete")
+    lead = A.shape[:-2]
+    F1 = q[..., :, 7].reshape(lead + (3, 3))
+    F2 = q[..., :, 8].reshape(lead + (3, 3))
+    dev = A.device
+    ts = torch.tensor([0.0, 1.0, -1.0, 2.0], dtype=A.dtype, device=dev)
+    ds = torch.linalg.det(F1[..., None, :, :] + ts[:, None, None] * F2[..., None, :, :])
+    V = torch.stack([ts ** 0, ts, ts ** 2, ts ** 3], dim=1)
+    c = torch.linalg.solve_ex(V.expand(lead + (4, 4)), ds[..., None])[0][..., 0]
+    c3 = torch.where(c[..., 3].abs() < 1e-12, 1e-12, c[..., 3])
+    a, b_, cc = c[..., 2] / c3, c[..., 1] / c3, c[..., 0] / c3
+    # the depressed cubic t^3 + p t + q, lam = t - a / 3
+    p = b_ - a * a / 3.0
+    q_ = 2.0 * a ** 3 / 27.0 - a * b_ / 3.0 + cc
+    disc = (q_ / 2.0) ** 2 + (p / 3.0) ** 3
+    m = 2.0 * torch.sqrt(torch.clamp(-p / 3.0, min=1e-12))
+    arg = torch.clamp(3.0 * q_ / (p * m + 1e-12), -1.0, 1.0)
+    theta = torch.arccos(arg) / 3.0
+    k = torch.arange(3, dtype=A.dtype, device=dev)
+    t_trig = m[..., None] * torch.cos(theta[..., None] - 2.0 * math.pi * k / 3.0)
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+
+    def cbrt(v):
+        return torch.sign(v) * v.abs() ** (1.0 / 3.0)
+
+    t_card = cbrt(-q_ / 2.0 + sq) + cbrt(-q_ / 2.0 - sq)
+    three_real = (disc <= 0)[..., None]
+    t_roots = torch.where(three_real, t_trig, t_card[..., None].expand_as(t_trig))
+    valid = three_real | (k == 0)
+    lams = t_roots - a[..., None] / 3.0                         # (..., 3)
+    Fs = (T2.transpose(-1, -2)[..., None, :, :]
+          @ (F1[..., None, :, :] + lams[..., None, None] * F2[..., None, :, :])
+          @ T1[..., None, :, :])
+    Fs = Fs / (torch.linalg.norm(Fs, dim=(-2, -1), keepdim=True) + 1e-12)
+    return Fs, valid
 
 
 def symmetric_epipolar_distance_sq(E, x1, x2, s1_sq=1.0, s2_sq=1.0) -> torch.Tensor:

@@ -41,6 +41,12 @@ def _solve(AtA: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return Xh[:, :3] / w[:, None]
 
 
+def triangulate_two_view(R1, C1, xy1, R2, C2, xy2) -> torch.Tensor:
+    """DLT of one correspondence, xy1/xy2 (2,) normalized undistorted
+    coords -> euclidean X (3,)."""
+    return triangulate_points(R1, C1, xy1[None], R2, C2, xy2[None])[0]
+
+
 def triangulate_points(R1, C1, x1, R2, C2, x2,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Two-view DLT of N correspondences: poses (3, 3)/(3,), x1/x2 (N, 2)

@@ -151,7 +151,7 @@ def _random_desc(rng: np.random.Generator, n: int) -> np.ndarray:
 def random_features(h: int, w: int, kp: int,
                     rng: np.random.Generator) -> FeaturesArrays:
     """kp valid keypoints uniform over a w x h image with random 512-bit
-    descriptors (stands in for the frontend, which is not ported yet).
+    descriptors (stands in for the frontend where a run needs no images).
     Draws, in order: xy, score, angle, desc."""
     xy = rng.uniform((0.0, 0.0), (w - 1.0, h - 1.0), (kp, 2)).astype(np.float32)
     score = rng.uniform(0.0, 1.0, kp).astype(np.float32)

@@ -14,6 +14,9 @@ product form (no division):
   ladder_rank_plain  — the kernel's plain twin, (Hm, M) planes in memory
   p3p_ladder_rank    — the P3P entry (zmode "pos"): folds focal into the model
                        and observation operands, then ladder_rank
+  homography_ladder_rank — the H entry (zmode "nonzero"): the projective
+                       planes [f H0; f H1; H2 | 0] as the camera rows and
+                       [x1; 1; 0] as [X; -1], then ladder_rank
   epi_rank           — the CUDA kernel csrc/epi_rank.cu on a CUDA tensor,
                        epi_rank_plain on CPU (symmetric epipolar distance)
   epipolar_ladder_rank — the E/F entry: (Hm, 27) model and (27, M) data
@@ -137,6 +140,24 @@ def p3p_ladder_rank(flats, Xw, bearings, valid, focal, thr_sq: float,
     (Hm,) float32 ladder rank; (D, Hm) with a leading drone axis."""
     eflat, xh, obs, maskf = p3p_operands(flats, Xw, bearings, valid, focal)
     return ladder_rank(eflat, xh, obs, maskf, thr_sq, "pos", jmax, n_rungs)
+
+
+def homography_ladder_rank(Hs, x1, x2, valid, focal, thr_sq: float,
+                           jmax: int = LADDER_JMAX,
+                           n_rungs: int = LADDER_RUNGS) -> torch.Tensor:
+    """Hs (Hm, 3, 3), x1/x2 (M, 2) normalized coords, valid (M,) bool,
+    image 2's focal -> (Hm,) float32 ladder rank of the forward transfer
+    error f^2 ||x2 - pi(H h1)||^2 (|w| < 1e-9 counts 0)."""
+    Hm = Hs.shape[0]
+    if not isinstance(focal, torch.Tensor):
+        focal = dispatch.constant(float(focal), Hs.device)
+    f = focal.to(torch.float32)
+    scale = torch.stack([f, f, torch.ones_like(f)])[:, None]          # (3, 1)
+    E = torch.cat([Hs * scale, torch.zeros_like(Hs[..., :1])], dim=-1)  # (Hm, 3, 4)
+    xh = torch.cat([x1, torch.ones_like(x1[:, :1]), torch.zeros_like(x1[:, :1])],
+                   dim=-1).T                                          # (4, M)
+    return ladder_rank(E.reshape(Hm, 12), xh, (x2 * f).T, valid.to(torch.float32),
+                       thr_sq, "nonzero", jmax, n_rungs)
 
 
 # ---------------------------------------------------------------------------

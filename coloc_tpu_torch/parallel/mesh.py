@@ -92,7 +92,7 @@ def inter_pose_device(
     # 1. pairwise putative match (query = src, train = dst)
     m = matching.match_pair(f_src, f_dst, cfg.matcher)
 
-    # 2. robust relative pose src -> dst (models F and H raise: ROADMAP A6)
+    # 2. robust relative pose src -> dst (geometric model E, F or H)
     geo = robust.relative_pose(
         cfg.model, f_src.xy, f_dst.xy[m.idx.long()], m.mask, cam_src, cam_dst,
         cfg.ransac, generator=generator, sample_idx=sample_idx, check_every=check_every)

@@ -217,7 +217,7 @@ def ransac(
         thr_best = torch.gather(thr, 1, best_sub)[:, 0]
         res = scorer(best_model, *data)
         inliers = (res <= thr_best[:, None]) & valid
-        n_inl = inliers.to(torch.int32).sum(dim=1)
+        n_inl = inliers.sum(dim=1, dtype=torch.int32)
         success = (torch.gather(score, 1, best_sub)[:, 0] < 0.0) & (n_inl >= gate)  # NFA < 1
         return RansacResult(model=best_model, inliers=inliers, n_inliers=n_inl,
                             success=success, threshold_sq=thr_best)
@@ -228,7 +228,7 @@ def ransac(
     best_model = flat_models[rows, torch.argmax(counts, dim=1)]
     res = scorer(best_model, *data)
     inliers = (res < threshold_sq) & valid
-    n_inl = inliers.to(torch.int32).sum(dim=1)
+    n_inl = inliers.sum(dim=1, dtype=torch.int32)
     return RansacResult(
         model=best_model, inliers=inliers, n_inliers=n_inl,
         success=n_inl >= gate,

@@ -1,10 +1,9 @@
-"""Robust two-view and absolute pose (counterpart of the model-E and P3P
-parts of coloc_tpu.robust).
+"""Robust two-view and absolute pose (counterpart of coloc_tpu.robust).
 
 Reference parity: RobustMatcher.hpp computeRelativePose (:372-424) for
-model 'E', and Localizer.hpp:77-108 — AC-RANSAC P3P (256 hypotheses); both
-accept iff inliers >= 2.5 x the minimal sample. Failure is a `success`
-flag, never an exception. Models 'F' and 'H' are not ported yet.
+the geometric models 'E', 'F' and 'H', and Localizer.hpp:77-108 —
+AC-RANSAC P3P (256 hypotheses); each accepts iff inliers >= 2.5 x the
+minimal sample. Failure is a `success` flag, never an exception.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from coloc_tpu_torch.config import RansacOptions
 from coloc_tpu_torch.geometry import camera as cam_ops
 from coloc_tpu_torch.geometry import essential as ess
 from coloc_tpu_torch.geometry import fivept
+from coloc_tpu_torch.geometry import homography as homog
 from coloc_tpu_torch.geometry import p3p as p3p_ops
 from coloc_tpu_torch.ops import ransac_rank
 from coloc_tpu_torch.ransac import ransac
@@ -137,18 +137,129 @@ def relative_pose_essential(
                            success=res.success)
 
 
+def _refit(res, refit_model, scorer, mask):
+    """coloc_tpu's keep-if-better least-squares re-fit: the re-fit model
+    and its inliers replace RANSAC's where they keep at least as many."""
+    refit_inl = (scorer(refit_model) < res.threshold_sq) & mask
+    n_refit = refit_inl.sum(dtype=torch.int32)
+    better = n_refit >= res.n_inliers
+    return (torch.where(better, refit_model, res.model),
+            torch.where(better, refit_inl, res.inliers),
+            torch.where(better, n_refit, res.n_inliers))
+
+
+def relative_pose_fundamental(
+    uv1: torch.Tensor, uv2: torch.Tensor, mask: torch.Tensor,
+    cam1: cam_ops.Camera, cam2: cam_ops.Camera, opts: RansacOptions,
+    generator: Optional[torch.Generator] = None,
+    sample_idx: Optional[torch.Tensor] = None,   # (B, 7)
+    check_every: int = 1,
+) -> TwoViewGeometry:
+    """Model 'F' (RobustMatcher.hpp:134-150): seven-point AC-RANSAC on
+    undistorted pixels (256 samples x 3 candidates), ranked by the
+    epipolar ladder in pixel units (csrc/epi_rank.cu on a CUDA device),
+    the Hartley 8-point re-fit over the inliers kept if it keeps as many,
+    then E = K2^T F K1 and the cheirality decomposition. `check_every` is
+    accepted for the common signature; this path has no loop to read."""
+    u1 = cam_ops.undistort_pixel(cam1, uv1)
+    u2 = cam_ops.undistort_pixel(cam2, uv2)
+    thr_sq = opts.essential_threshold ** 2
+
+    def scorer(F, a1, a2):
+        return ess.symmetric_epipolar_distance_sq(F, a1, a2)
+
+    def batch_scorer(Fs, a1, a2):
+        return ess.symmetric_epipolar_distance_sq_batch(Fs, a1, a2)
+
+    def rank_fn(Fs, valid_c, a1, a2):
+        return ransac_rank.epipolar_ladder_rank(Fs, a1, a2, valid_c, 1.0, 1.0,
+                                                thr_sq)
+
+    # log_alpha0 of a point-to-line error in pixels
+    A_px = (2.0 * cam1.cx) * (2.0 * cam1.cy)
+    D_px = torch.sqrt((2.0 * cam1.cx) ** 2 + (2.0 * cam1.cy) ** 2)
+    res = ransac(
+        (u1, u2), mask, ess.seven_point, scorer, batch_scorer,
+        sample_size=7, num_hypotheses=opts.num_hypotheses,
+        threshold_sq=thr_sq, inlier_multiple=opts.inlier_multiple,
+        scoring=opts.scoring, log_alpha0=torch.log10(2.0 * D_px / A_px),
+        error_dim=1.0, rank_fn=rank_fn, generator=generator,
+        sample_idx=sample_idx,
+    )
+    F, inliers, n_inliers = _refit(
+        res, ess.fundamental_8pt(u1, u2, weights=res.inliers.to(torch.float32)),
+        lambda F: scorer(F, u1, u2), mask)
+    E = cam2.K.T @ F @ cam1.K
+    R, t = ess.decompose_essential(E, cam_ops.normalize(cam1, u1),
+                                   cam_ops.normalize(cam2, u2), inliers)
+    return TwoViewGeometry(R=R, t=t, inliers=inliers, n_inliers=n_inliers,
+                           success=res.success)
+
+
+def relative_pose_homography(
+    uv1: torch.Tensor, uv2: torch.Tensor, mask: torch.Tensor,
+    cam1: cam_ops.Camera, cam2: cam_ops.Camera, opts: RansacOptions,
+    generator: Optional[torch.Generator] = None,
+    sample_idx: Optional[torch.Tensor] = None,   # (B, 4)
+    check_every: int = 1,
+) -> TwoViewGeometry:
+    """Model 'H' (RobustMatcher.hpp:188-206, :39-126): four-point
+    AC-RANSAC on normalized coords with the forward transfer error in
+    camera 2's pixels, ranked by the ladder in its "nonzero" mode
+    (csrc/ransac_rank.cu on a CUDA device), the weighted DLT re-fit over
+    the inliers kept if it keeps as many, then the Euclidean
+    decomposition; success also needs the chirality vote's margin.
+    `check_every` is accepted for the common signature."""
+    x1 = cam_ops.undistort(cam1, cam_ops.normalize(cam1, uv1))
+    x2 = cam_ops.undistort(cam2, cam_ops.normalize(cam2, uv2))
+    # the transfer error lives in image 2: camera 2's focal
+    f2 = _mean_focal(cam2)
+    f2_sq = f2 ** 2
+    thr_sq = opts.homography_threshold ** 2
+
+    def solver(s1, s2):
+        H = homog.four_point(s1, s2)
+        return H[:, None], torch.ones(H.shape[:1] + (1,), dtype=torch.bool,
+                                      device=H.device)
+
+    def scorer(H, a1, a2):
+        return f2_sq * homog.transfer_error_sq(H, a1, a2)
+
+    def batch_scorer(Hs, a1, a2):
+        return f2_sq * homog.transfer_error_sq_batch(Hs, a1, a2)
+
+    def rank_fn(Hs, valid_c, a1, a2):
+        return ransac_rank.homography_ladder_rank(Hs, a1, a2, valid_c, f2, thr_sq)
+
+    # log_alpha0 of a point transfer error in image 2's pixels
+    A_px = (2.0 * cam2.cx) * (2.0 * cam2.cy)
+    res = ransac(
+        (x1, x2), mask, solver, scorer, batch_scorer,
+        sample_size=4, num_hypotheses=opts.num_hypotheses,
+        threshold_sq=thr_sq, inlier_multiple=opts.inlier_multiple,
+        scoring=opts.scoring, log_alpha0=torch.log10(math.pi / A_px),
+        error_dim=2.0, rank_fn=rank_fn, generator=generator,
+        sample_idx=sample_idx,
+    )
+    Hm, inliers, n_inliers = _refit(
+        res, homog.four_point(x1, x2, weights=res.inliers.to(torch.float32)),
+        lambda H: scorer(H, x1, x2), mask)
+    R, t, _n, chirality_ok = homog.decompose_homography(
+        Hm, x1, x2, inliers, opts.chirality_ratio)
+    return TwoViewGeometry(R=R, t=t, inliers=inliers, n_inliers=n_inliers,
+                           success=res.success & chirality_ok)
+
+
 def relative_pose(model: str, uv1, uv2, mask, cam1, cam2, opts: RansacOptions,
                   **kw) -> TwoViewGeometry:
     """The two-view estimator of geometric model `model` (coloc_tpu's
     dispatch over relative_pose_{essential,fundamental,homography}); `kw`
-    goes to it. Models F and H are not ported yet and raise."""
-    if model == "E":
-        return relative_pose_essential(uv1, uv2, mask, cam1, cam2, opts, **kw)
-    if model in ("F", "H"):
-        raise NotImplementedError(
-            f"model {model!r}: the {'fundamental' if model == 'F' else 'homography'}"
-            " two-view path is not ported yet (ROADMAP A6)")
-    raise ValueError(f"unknown geometric model {model!r}")
+    goes to it."""
+    fns = {"E": relative_pose_essential, "F": relative_pose_fundamental,
+           "H": relative_pose_homography}
+    if model not in fns:
+        raise ValueError(f"unknown geometric model {model!r}")
+    return fns[model](uv1, uv2, mask, cam1, cam2, opts, **kw)
 
 
 def absolute_pose_p3p(

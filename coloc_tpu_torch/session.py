@@ -11,13 +11,17 @@ bank.
       localization over a leading drone axis (one P3P launch of D x 256
       samples, one B3 launch, one LM with a done mask per drone), landmark
       support counts, the filter bank update
-  ColocSession          — init_map (the D = 2 model-E bootstrap),
-      intra_pose_all, intra_pose (the same body at D = 1), inter_pose and
+  ColocSession          — init_map (the two-view bootstrap at D = 2, the
+      track-based reconstruction at D > 2, models E, F and H), update_map
+      (a rebuild brought to the old map's scale), intra_pose_all,
+      intra_pose (the same body at D = 1), inter_pose and
       inter_pose_round (inter-drone relative pose and ICI fusion through
       parallel/mesh.inter_pose_device), run, and intra_pose_chunk /
       run_chunked, which on the card replay the step as a captured CUDA
       graph (coloc_tpu's lax.scan over the jitted step); run and
-      run_chunked fuse every `inter_every` frames (whole chunks), eagerly
+      run_chunked fuse every `inter_every` frames and rebuild the map every
+      `update_map_every` (whole chunks) or after `auto_update_patience`
+      dead frames (chunks), eagerly
 
 The host drives the events; tensors stay on the session's device, which is
 cuda:0 unless the caller asks for another. RANSAC draws are uniforms from
@@ -37,8 +41,8 @@ changes nothing, so the graphs give the eager step's bits. On the CPU the
 chunk runs that step eagerly frame by frame.
 
 Not ported yet, each raising NotImplementedError where it is asked for:
-models F and H and the D > 2 reconstruction (ROADMAP A6), update_map and
-the map lifecycle (A6, A8), logging, checkpoints, the stage profiler and
+the map lifecycle's extend_map and cull_map (run's extend_map_every and
+cull_map_every, ROADMAP A8), logging, checkpoints, the stage profiler and
 the debug output (A5b), the AKAZE frontend's captured chunk (A5a-3).
 """
 
@@ -51,7 +55,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from coloc_tpu_torch import matching, robust
+from coloc_tpu_torch import matching, robust, utils
 from coloc_tpu_torch.config import ColocConfig
 from coloc_tpu_torch.frontend import detect_and_describe, detect_and_describe_batch
 from coloc_tpu_torch.fusion import covint, kalman
@@ -331,8 +335,10 @@ class ColocSession:
 
     Attributes as coloc_tpu's: map_ready, mapdb, scene, filter_bank,
     last_pose, frame, lm_support, lm_last_seen; plus bootstrap_geo and
-    bootstrap_ba, the bootstrap's TwoViewGeometry and BAResult, and
-    last_rejected, the (D,) gate rejections of the last frame."""
+    bootstrap_ba, the bootstrap's TwoViewGeometry (of the seed pair) and
+    BAResult, bootstrap_views, the drone of each scene row (row 0's camera
+    is the world frame), and last_rejected, the (D,) gate rejections of
+    the last frame."""
 
     def __init__(self, config: ColocConfig, Ks, dists, out_dir: str = "",
                  seed: int = 0, profile: bool = False, viz=None,
@@ -360,6 +366,7 @@ class ColocSession:
         self.scene: Optional[reconstruct.Scene] = None
         self.bootstrap_geo: Optional[TwoViewGeometry] = None
         self.bootstrap_ba = None
+        self.bootstrap_views: Optional[list] = None
         self.last_rejected: Optional[torch.Tensor] = None
         self.map_ready = False
         self.frame = 0
@@ -386,19 +393,28 @@ class ColocSession:
     def detect(self, image) -> Features:
         return detect_and_describe(self._image(image), self.config.detector)
 
-    def init_map(self, images, sample_idx: Optional[torch.Tensor] = None) -> bool:
-        """Bootstrap the shared map from one frame of each of two drones
-        (ColoC::initMap, coloc.hpp:151-199): detect, match the pair, model-E
-        AC-RANSAC, triangulate, full BA with drone 0's pose fixed. False if
-        the geometry fails or fewer than 8 landmarks survive.
-        `sample_idx` (256, 5): injected five-point draws."""
+    def init_map(self, images, sample_idx=None,
+                 resection_idx: Optional[list] = None) -> bool:
+        """Bootstrap the shared map from one frame of every drone
+        (ColoC::initMap, coloc.hpp:151-199), with the geometric model
+        config.model ('E', 'F' or 'H'). Two drones: detect, match the
+        pair, AC-RANSAC, triangulate, full BA with drone 0's pose fixed;
+        `sample_idx` (256, S) injects the pair's minimal samples. More
+        drones: every pair of utils.exhaustive_pairs matched and its
+        relative pose estimated, the successful pairs into
+        reconstruct.reconstruct_scene (tracks, seed pair, P3P resection,
+        BA); `sample_idx` is then a dict (a, b) -> (256, S) and
+        `resection_idx` a list of (256, 3) P3P draws, one per resection.
+        False if no geometry succeeds or fewer than 8 landmarks survive;
+        the map is then left as it was."""
         cfg = self.config
-        if cfg.num_drones != 2:
-            raise NotImplementedError(
-                f"init_map with {cfg.num_drones} drones: the D > 2 "
-                "reconstruction (reconstruct_scene, tracks, resection) is not "
-                "ported yet (ROADMAP A6)")
-        f0, f1 = self.detect(images[0]), self.detect(images[1])
+        D = cfg.num_drones
+        if D < 2:
+            raise ValueError(f"init_map needs two drones or more, not {D}")
+        feats = {d: self.detect(images[d]) for d in range(D)}
+        if D > 2:
+            return self._init_map_multiview(feats, sample_idx or {}, resection_idx)
+        f0, f1 = feats[0], feats[1]
         m = matching.match_pair(f0, f1, cfg.matcher)
         geo = robust.relative_pose(
             cfg.model, f0.xy, f1.xy[m.idx.long()], m.mask, self.cams[0], self.cams[1],
@@ -411,19 +427,69 @@ class ColocSession:
         scene = reconstruct.two_view_scene(
             f0, f1, m, geo.inliers, geo.R, geo.t, origin, cfg.scale,
             self.cams[0], self.cams[1], num_landmarks=cfg.max_landmarks)
-        scene, ba = reconstruct.refine_scene(
+        scene, ba_res = reconstruct.refine_scene(
             scene, self.Ks[:2], self.dists[:2], cfg.refiner,
             fix_pose=torch.tensor([True, False], device=self.device),
             check_every=BOOTSTRAP_CHECK_EVERY)
+        return self._set_map(scene, geo, ba_res, [0, 1])
+
+    def _init_map_multiview(self, feats: Dict[int, Features], pair_idx: dict,
+                            resection_idx: Optional[list]) -> bool:
+        """init_map for D > 2 (coloc_tpu's reconstruct_scene branch)."""
+        cfg = self.config
+        pair_matches, pair_geo = {}, {}
+        for a, b in utils.exhaustive_pairs(cfg.num_drones):
+            m = matching.match_pair(feats[a], feats[b], cfg.matcher)
+            geo = robust.relative_pose(
+                cfg.model, feats[a].xy, feats[b].xy[m.idx.long()], m.mask,
+                self.cams[a], self.cams[b], cfg.ransac, generator=self.generator,
+                sample_idx=pair_idx.get((a, b)), check_every=BOOTSTRAP_CHECK_EVERY)
+            if bool(geo.success):
+                pair_matches[(a, b)], pair_geo[(a, b)] = m, geo
+        if not pair_geo:
+            return False
+        scene, ba_res, views = reconstruct.reconstruct_scene(
+            [feats[d] for d in range(cfg.num_drones)], pair_matches, pair_geo,
+            self.cams, self.Ks, self.dists, cfg.scale, cfg.max_landmarks,
+            cfg.refiner, cfg.ransac, generator=self.generator,
+            resection_idx=resection_idx, check_every=BOOTSTRAP_CHECK_EVERY)
+        return self._set_map(scene, pair_geo[tuple(views[:2])], ba_res, views)
+
+    def _set_map(self, scene: reconstruct.Scene, geo: TwoViewGeometry, ba_res,
+                 views: list) -> bool:
+        """Make a bootstrapped scene the session's map, unless fewer than 8
+        landmarks survived (then False, the old map kept)."""
         if int(scene.X_valid.sum()) < 8:
             return False
         self.scene = scene
-        self.bootstrap_geo, self.bootstrap_ba = geo, ba
+        self.bootstrap_geo, self.bootstrap_ba = geo, ba_res
+        self.bootstrap_views = views
         self.mapdb = reconstruct.scene_to_mapdb(scene)
         self.map_ready = True
         # a wholesale (re)build: every slot is a fresh landmark
         self.lm_support = None
         self.lm_last_seen = None
+        return True
+
+    def update_map(self, images, sample_idx=None,
+                   resection_idx: Optional[list] = None) -> bool:
+        """Rebuild the map from the current frames and bring it to the old
+        map's scale (ColoC::updateMap, coloc.hpp:394-459): init_map, then
+        match_maps of the new map against the old; with 2 common landmarks
+        or more, the new map (landmarks and camera centres) is divided by
+        utils.compute_scale_difference. The draws are init_map's. False if
+        the rebuild failed (the old map kept)."""
+        old_db = self.mapdb
+        ok = self.init_map(images, sample_idx, resection_idx)
+        if not ok or old_db is None:
+            return ok
+        mm = matching.match_maps(self.mapdb, old_db, self.config.matcher)
+        if int((mm.mask & self.mapdb.valid).sum()) >= 2:
+            scale = utils.compute_scale_difference(self.mapdb, old_db, mm)
+            X, Cs = utils.rescale_map(self.scene.X, self.scene.Cs,
+                                      1.0 / torch.clamp(scale, min=1e-6))
+            self.scene = self.scene._replace(X=X, Cs=Cs)
+            self.mapdb = reconstruct.scene_to_mapdb(self.scene)
         return True
 
     def _map_bank(self) -> hamming.Bank:
@@ -632,8 +698,8 @@ class ColocSession:
         asked = [k for k, v in lifecycle.items() if v]
         if asked:
             raise NotImplementedError(
-                f"{', '.join(asked)}: update_map and the map lifecycle are not "
-                "ported yet (ROADMAP A6, A8)")
+                f"{', '.join(asked)}: extend_map and cull_map, the map lifecycle, "
+                "are not ported yet (ROADMAP A8)")
 
     def _bootstrap(self, frames: Dict[int, list], num_frames: int) -> int:
         """init_map on the first frames that succeed -> the next frame."""
@@ -649,22 +715,24 @@ class ColocSession:
             cull_map_every: int = 0, cull_max_age: int = 64,
             cull_min_support: int = 8) -> Dict[int, list]:
         """mainThread parity (coloc.hpp:96-148): bootstrap on the first
-        frames that succeed, then intra_pose_all every frame, and an
+        frames that succeed, then intra_pose_all every frame, an
         inter_pose_round on every frame whose index is a multiple of
-        `inter_every` (0: never). Returns the per-drone lists of filtered
-        poses. The options of paths not ported yet raise rather than being
-        skipped."""
+        `inter_every` (0: never), and update_map on every frame whose
+        index is a multiple of `update_map_every` (0: never) or, with
+        `auto_update_map`, after `auto_update_patience` consecutive frames
+        in which no drone localized. Returns the per-drone lists of
+        filtered poses. extend_map_every and cull_map_every (ROADMAP A8)
+        raise rather than being skipped."""
         cfg = self.config
         D = cfg.num_drones
-        self._refuse({"update_map_every": update_map_every,
-                      "auto_update_map": auto_update_map,
-                      "extend_map_every": extend_map_every,
+        self._refuse({"extend_map_every": extend_map_every,
                       "cull_map_every": cull_map_every})
         num_frames = min(len(v) for v in frames.values())
         out = {d: [] for d in range(D)}
         f = self._bootstrap(frames, num_frames)
         if not self.map_ready:
             return out
+        dead = 0
         for frame_idx in range(f, num_frames):
             self.frame = frame_idx
             images = {d: frames[d][frame_idx] for d in range(D)}
@@ -673,6 +741,14 @@ class ColocSession:
                 out[d].append(res[d])
             if inter_every and frame_idx % inter_every == 0 and D >= 2:
                 self.inter_pose_round(images)
+            trigger = bool(update_map_every) and frame_idx % update_map_every == 0
+            if auto_update_map:
+                # reads the success flags from the device, only when asked
+                dead = dead + 1 if not any(bool(res[d].success) for d in range(D)) else 0
+                if dead >= auto_update_patience:
+                    trigger, dead = True, 0
+            if trigger:
+                self.update_map(images)
         return out
 
     def run_chunked(self, frames: Dict[int, list], chunk: int = 16,
@@ -683,21 +759,23 @@ class ColocSession:
         bootstrap, then frames in (chunk, D, H, W) blocks through
         intra_pose_chunk, the last partial chunk frame by frame through
         intra_pose_all so no frame is dropped. A fusion round follows every
-        `inter_every` frames rounded up to whole chunks (coloc_tpu's
-        documented deviation from run's per-frame schedule), on the chunk's
-        last frame. Returns the per-drone lists of filtered poses. The
-        options of paths not ported yet raise."""
+        `inter_every` frames and update_map every `update_map_every`
+        frames, each rounded up to whole chunks (coloc_tpu's documented
+        deviation from run's per-frame schedule), on the chunk's last
+        frame; `auto_update_map` counts the chunks in which no drone
+        localized on any frame and rebuilds the map after
+        `auto_update_patience` such chunks in a row. Returns the per-drone
+        lists of filtered poses."""
         cfg = self.config
         D = cfg.num_drones
-        self._refuse({"update_map_every": update_map_every,
-                      "auto_update_map": auto_update_map})
         num_frames = min(len(v) for v in frames.values())
         out = {d: [] for d in range(D)}
         f = self._bootstrap(frames, num_frames)
         if not self.map_ready:
             return out
         inter_chunks = max(1, -(-inter_every // chunk)) if inter_every else 0
-        chunks_done = 0
+        update_chunks = max(1, -(-update_map_every // chunk)) if update_map_every else 0
+        chunks_done = dead = 0
         while f < num_frames:
             n = min(chunk, num_frames - f)
             if n == chunk:
@@ -721,4 +799,13 @@ class ColocSession:
                 self.frame = f - 1
                 self.inter_pose_round({d: frames[d][f - 1] for d in range(D)})
                 self.frame = f
+            trigger = bool(update_chunks) and chunks_done % update_chunks == 0
+            if auto_update_map:
+                # one read of the chunk's success flags, only when asked
+                alive = bool(torch.stack([p.success for d in range(D) for p in res[d]]).any())
+                dead = 0 if alive else dead + 1
+                if dead >= auto_update_patience:
+                    trigger, dead = True, 0
+            if trigger:
+                self.update_map({d: frames[d][f - 1] for d in range(D)})
         return out

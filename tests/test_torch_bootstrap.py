@@ -29,6 +29,7 @@ from coloc_tpu_torch import config as tcfg
 from coloc_tpu_torch import convert
 from coloc_tpu_torch.fusion import kalman as tkalman
 from coloc_tpu_torch.geometry import camera as tcam
+from coloc_tpu_torch.geometry import se3 as tse3
 from coloc_tpu_torch.session import ColocSession as TSession
 from coloc_tpu_torch.sfm import ba as tba
 from coloc_tpu_torch.sfm import reconstruct as trec
@@ -278,10 +279,7 @@ def test_run_end_to_end(dataset):
     assert int(ts.filter_bank.steps.sum()) >= 2 * (FRAMES - 2)
 
 
-@pytest.mark.parametrize("what", ["update_map_every", "cull_map_every",
-                                  "out_dir", "model_F", "model_H", "three_drones",
-                                  "chunked_update_map_every",
-                                  "chunked_auto_update_map"])
+@pytest.mark.parametrize("what", ["extend_map_every", "cull_map_every", "out_dir"])
 def test_unported_paths_raise(dataset, what):
     frames, _ = dataset
     _, tc = _configs()
@@ -289,24 +287,9 @@ def test_unported_paths_raise(dataset, what):
         with pytest.raises(NotImplementedError, match="A5"):
             TSession(tc, KS, DISTS, out_dir="logs", device="cpu")
         return
-    if what in ("model_F", "model_H"):
-        _, tc = _configs(model=what[-1])
-        ts = TSession(tc, KS, DISTS, device="cpu")
-        with pytest.raises(NotImplementedError, match="A6"):
-            ts.init_map({0: frames[0][0], 1: frames[1][0]})
-        return
-    if what == "three_drones":
-        tc3 = tcfg.ColocConfig(num_drones=3, detector=tc.detector, max_landmarks=512)
-        ts = TSession(tc3, np.stack([K] * 3), np.zeros((3, 3), np.float32), device="cpu")
-        with pytest.raises(NotImplementedError, match="A6"):
-            ts.init_map({d: frames[0][0] for d in range(3)})
-        return
     ts = TSession(tc, KS, DISTS, device="cpu")
-    entry = ts.run
-    if what.startswith("chunked_"):
-        entry, what = ts.run_chunked, what[len("chunked_"):]
     with pytest.raises(NotImplementedError, match="A8"):
-        entry(frames, **{what: 2})
+        ts.run(frames, **{what: 2})
     assert not ts.map_ready                      # raised before any work
 
 
@@ -325,7 +308,8 @@ def _scene_stub():
 
 
 @pytest.mark.parametrize("entry", ["session", "kalman", "features", "mapdb", "camera",
-                                   "filter_bank", "scene", "two_view"])
+                                   "filter_bank", "scene", "two_view", "matches",
+                                   "identity"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """device None means cuda:0: with no CUDA device it raises rather than
     running on the CPU; device="cpu" is the caller's explicit choice."""
@@ -346,6 +330,10 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
         "two_view": lambda **kw: convert.two_view_from_numpy(
             type("G", (), dict(R=np.eye(3), t=np.ones(3), inliers=np.ones(4, bool),
                                n_inliers=4, success=True))(), **kw),
+        "matches": lambda **kw: convert.matches_from_numpy(
+            type("M", (), dict(idx=np.array([1, -1]), best=np.zeros(2),
+                               second=np.ones(2)))(), **kw),
+        "identity": lambda **kw: tse3.identity(**kw),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

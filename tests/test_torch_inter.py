@@ -382,8 +382,9 @@ def test_inter_pose_round_unknown_policy_and_one_drone():
 
 def test_inter_pose_round_three_drones(fused, dataset):
     """A real round at D = 3 on a map carried from the D = 2 bootstrap
-    (init_map for D > 2 is ROADMAP A6): auto is the ring, each drone a
-    destination once, at least two of three fused with finite results."""
+    (the D = 3 bootstrap is tests/test_torch_bootstrap_models.py's): auto
+    is the ring, each drone a destination once, at least two of three
+    fused with finite results."""
     frames, _ = dataset
     _, tc3 = _configs(3)
     ts = TSession(tc3, np.stack([K] * 3), np.zeros((3, 3), np.float32), device="cpu")
