@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -72,10 +72,41 @@ def _akaze_mask(row_base, heights, widths, wp, rows, border, batch=1):
     return np.tile(m, (batch, 1)) if batch > 1 else m
 
 
-@functools.lru_cache(maxsize=8)
+# unbounded: a captured CUDA graph reads these tensors, and an evicted
+# entry's memory would be reused under it
+@functools.lru_cache(maxsize=None)
 def _akaze_mask_on(device: torch.device, *args) -> torch.Tensor:
     # one host-to-device copy per geometry and device, not one per frame
     return torch.from_numpy(_akaze_mask(*args)).to(device)
+
+
+class _LevelTables(NamedTuple):
+    """Per-level constants of the stacked rasters, on one device."""
+
+    row_base: torch.Tensor   # (L,) int64 first stacked row
+    sigma: torch.Tensor      # (L,) float32 sigma in level-local pixels
+    widths: torch.Tensor     # (L,) int32
+    heights: torch.Tensor    # (L,) int32
+    up: torch.Tensor         # (L,) float32 2^octave, level to base pixels
+
+
+# unbounded: a captured CUDA graph reads these tensors, and an evicted
+# entry's memory would be reused under it
+@functools.lru_cache(maxsize=None)
+def _level_tables(device: torch.device, row_base, heights, widths,
+                  scales) -> _LevelTables:
+    """The levels' tables (row_base, heights, widths: tuples of ints;
+    scales: (sigma, octave) a level) made once per geometry and device,
+    not copied to the device every frame, which a captured step may not
+    do. Read only: every caller shares them."""
+    def on(values, dtype):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+    return _LevelTables(
+        row_base=on(row_base, torch.int64),
+        sigma=on([s / (2.0 ** o) for s, o in scales], torch.float32),
+        widths=on(widths, torch.int32), heights=on(heights, torch.int32),
+        up=on([2.0 ** o for _, o in scales], torch.float32))
 
 
 def _num_octaves(opts: DetectorOptions) -> int:
@@ -174,10 +205,10 @@ def detect_and_describe_akaze_batch(images: torch.Tensor, opts: DetectorOptions,
     sp_nms = patch_ops.stack_levels_batch(nms)
     sp_resp = patch_ops.stack_levels_batch([ev.response for ev in levels])
     wp, R = sp_nms.wp, sp_nms.img_rows
-    mask = _akaze_mask_on(dev, tuple(int(r) for r in sp_nms.row_base),
-                          tuple(int(h) for h in sp_nms.heights),
-                          tuple(int(w) for w in sp_nms.widths),
-                          wp, R, _DETECT_BORDER, B)
+    geom = (tuple(int(r) for r in sp_nms.row_base), tuple(int(h) for h in sp_nms.heights),
+            tuple(int(w) for w in sp_nms.widths))
+    mask = _akaze_mask_on(dev, *geom, wp, R, _DETECT_BORDER, B)
+    tables = _level_tables(dev, *geom, tuple((ev.sigma, ev.octave) for ev in levels))
     top_s, top_i = fast_ops.topk_desc((sp_nms.stacked * mask).reshape(B, R * wp), k)
     boff = torch.arange(B, device=dev).repeat_interleave(k) * R      # (B*k,)
     top_s = top_s.reshape(B * k)
@@ -185,16 +216,14 @@ def detect_and_describe_akaze_batch(images: torch.Tensor, opts: DetectorOptions,
     valid = top_s > 0
     row = top_i // wp                  # within-image stacked row
     col = top_i % wp
-    rb = torch.as_tensor(sp_nms.row_base, device=dev).to(torch.int64)
+    rb = tables.row_base
     kp_l = (row[:, None] >= rb[None, 1:]).sum(dim=1)
 
     # subpixel offsets on the stacked raw response, added to LOCAL coords
     dx, dy = fast_ops.subpixel_offsets(sp_resp.stacked, col, row + boff)
     kp_x = col.to(torch.float32) + dx
     kp_y = (row - rb[kp_l]).to(torch.float32) + dy          # level-local y
-    sig_table = torch.tensor([ev.sigma / (2.0 ** ev.octave) for ev in levels],
-                             dtype=torch.float32, device=dev)
-    kp_sig = sig_table[kp_l]           # sigma in level-local pixels
+    kp_sig = tables.sigma[kp_l]        # sigma in level-local pixels
     mark("topk")
 
     # the bf16 sampling source: L, Lx, Ly and their 64-lane-shifted copies
@@ -210,10 +239,9 @@ def detect_and_describe_akaze_batch(images: torch.Tensor, opts: DetectorOptions,
     src6 = torch.cat([sp_l.stacked, sp_lx.stacked, sp_ly.stacked,
                       shift64(sp_l.stacked), shift64(sp_lx.stacked),
                       shift64(sp_ly.stacked)], dim=0).to(torch.bfloat16)
-    widths = torch.as_tensor(sp_l.widths, device=dev)
-    heights = torch.as_tensor(sp_l.heights, device=dev)
-    w_l = widths[kp_l].to(torch.float32)
-    h_l = heights[kp_l].to(torch.float32)
+    # sp_l's levels have sp_nms's shapes, so the same tables
+    w_l = tables.widths[kp_l].to(torch.float32)
+    h_l = tables.heights[kp_l].to(torch.float32)
     row0, _ = patch_ops.patch_origins(sp_l, kp_x, kp_y, kp_l)
     row0_local = row0 - rb[kp_l].to(torch.int32)
     # narrow-window column selection: leftmost needed column a; the plain
@@ -249,8 +277,7 @@ def detect_and_describe_akaze_batch(images: torch.Tensor, opts: DetectorOptions,
     mark("descriptor")
 
     # base-resolution coordinates
-    up = torch.tensor([2.0 ** ev.octave for ev in levels], dtype=torch.float32,
-                      device=dev)[kp_l]
+    up = tables.up[kp_l]
     xy = torch.stack([kp_x * up, kp_y * up], dim=-1)
     feats = Features(
         xy=torch.where(valid[:, None], xy, 0.0),

@@ -78,7 +78,9 @@ def _detection_mask(row_base, heights, widths, wp, total_rows,
     return np.tile(mask, (batch, 1)) if batch > 1 else mask
 
 
-@functools.lru_cache(maxsize=8)
+# unbounded: a captured CUDA graph reads these tensors, and an evicted
+# entry's memory would be reused under it
+@functools.lru_cache(maxsize=None)
 def _detection_mask_on(device: torch.device, *args) -> torch.Tensor:
     # one host-to-device copy per geometry and device, not one per frame
     return torch.from_numpy(_detection_mask(*args)).to(device)

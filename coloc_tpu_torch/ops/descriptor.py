@@ -60,7 +60,9 @@ def _make_tables(seed: int = _TABLE_SEED):
 _POOL, _TRIPLETS = _make_tables()
 
 
-@functools.lru_cache(maxsize=8)
+# unbounded: a captured CUDA graph reads these tensors, and an evicted
+# entry's memory would be reused under it
+@functools.lru_cache(maxsize=None)
 def _tables_on(device: torch.device):
     """The pool (float32) and triplets (int64) on `device`: one
     host-to-device copy per device, not one per frame."""

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,6 +51,15 @@ def _disc_offsets(radius: float = 6.0, rings: int = 3):
 _DISC = _disc_offsets()
 
 
+# unbounded: a captured CUDA graph reads these tensors, and an evicted
+# entry's memory would be reused under it
+@functools.lru_cache(maxsize=None)
+def _disc_on(device: torch.device) -> torch.Tensor:
+    """_DISC on `device`, copied once per device, not every frame (a
+    captured step may not copy from the host). Read only."""
+    return torch.from_numpy(_DISC).to(device)
+
+
 def orientation(sampler, kp_x, kp_y, kp_sigma_px, w_l, h_l, col0,
                 row0_local) -> torch.Tensor:
     """Dominant-gradient orientation per keypoint, (K,) radians.
@@ -57,7 +67,7 @@ def orientation(sampler, kp_x, kp_y, kp_sigma_px, w_l, h_l, col0,
     `sampler(lx, ly)` -> (2, K, P) Lx / Ly samples at window-local
     coordinates; kp_* are level-local, w_l / h_l the levels' extents
     (float), col0 / row0_local the windows' level-local origins."""
-    disc = torch.from_numpy(_DISC).to(kp_x.device)
+    disc = _disc_on(kp_x.device)
     sx = kp_x[:, None] + kp_sigma_px[:, None] * disc[None, :, 0]
     sy = kp_y[:, None] + kp_sigma_px[:, None] * disc[None, :, 1]
     sx = torch.minimum(torch.clamp(sx, min=0.0), (w_l - 1.0)[:, None])
@@ -120,6 +130,32 @@ def _grid_cells(cell_samples: int = _CELL_SAMPLES):
     )
 
 
+class _GridTables(NamedTuple):
+    """_grid_cells on one device: what describe_mldb reads of it."""
+
+    coords: torch.Tensor     # (N, 2) float32 normalised patch coordinates
+    pool: torch.Tensor       # (N, cells) float32 one-hot over cell_of / count
+    pair_a: torch.Tensor     # (162,) int64 first cell of each compared pair
+    pair_b: torch.Tensor     # (162,) int64 second cell
+
+
+# unbounded: a captured CUDA graph reads these tensors, and an evicted
+# entry's memory would be reused under it
+@functools.lru_cache(maxsize=None)
+def _grid_on(device: torch.device, cell_samples: int) -> _GridTables:
+    """_grid_cells(cell_samples) on `device`, made once per device and not
+    every frame (a captured step may not copy from the host); the pooling
+    matrix is normalised on the device, as each call did. Read only."""
+    coords, cell_of, pairs, num_cells = _grid_cells(cell_samples)
+    onehot = (torch.from_numpy(cell_of).to(device)[:, None]
+              == torch.arange(num_cells, device=device)[None, :]).to(torch.float32)
+    return _GridTables(
+        coords=torch.from_numpy(coords).to(device),
+        pool=onehot / onehot.sum(dim=0, keepdim=True),
+        pair_a=torch.from_numpy(pairs[:, 0]).to(device),
+        pair_b=torch.from_numpy(pairs[:, 1]).to(device))
+
+
 def describe_mldb(sampler, kp_x, kp_y, kp_sigma_px, kp_angle, w_l, h_l,
                   col0, row0_local, cell_samples: int = _CELL_SAMPLES
                   ) -> torch.Tensor:
@@ -128,9 +164,8 @@ def describe_mldb(sampler, kp_x, kp_y, kp_sigma_px, kp_angle, w_l, h_l,
     `sampler(lx, ly)` -> (3, K, N) L / Lx / Ly samples. Cell means are one
     float32 product with the normalised pooling matrix (TF32 off,
     coloc_tpu_torch/__init__.py), as coloc_tpu's `L @ cell_onehot`."""
-    coords_np, cell_of, pairs, num_cells = _grid_cells(cell_samples)
-    dev = kp_x.device
-    coords = torch.from_numpy(coords_np).to(dev)
+    grid = _grid_on(kp_x.device, cell_samples)
+    coords = grid.coords
     ca, sa = torch.cos(kp_angle), torch.sin(kp_angle)
 
     half = _PATCH_HALF * kp_sigma_px
@@ -147,13 +182,10 @@ def describe_mldb(sampler, kp_x, kp_y, kp_sigma_px, kp_angle, w_l, h_l,
     Dx = ca[:, None] * Gx + sa[:, None] * Gy                # steered derivatives
     Dy = -sa[:, None] * Gx + ca[:, None] * Gy
 
-    onehot = (torch.from_numpy(cell_of).to(dev)[:, None]
-              == torch.arange(num_cells, device=dev)[None, :]).to(torch.float32)
-    onehot = onehot / onehot.sum(dim=0, keepdim=True)
-    mL, mX, mY = L @ onehot, Dx @ onehot, Dy @ onehot       # (K, cells)
+    pool = grid.pool
+    mL, mX, mY = L @ pool, Dx @ pool, Dy @ pool             # (K, cells)
 
-    pa = torch.from_numpy(pairs[:, 0]).to(dev)
-    pb = torch.from_numpy(pairs[:, 1]).to(dev)
+    pa, pb = grid.pair_a, grid.pair_b
     bits = torch.cat([mL[:, pa] > mL[:, pb], mX[:, pa] > mX[:, pb],
                       mY[:, pa] > mY[:, pb]], dim=1)        # (K, 486)
     bits = torch.nn.functional.pad(bits.to(torch.int32), (0, 512 - bits.shape[1]))

@@ -19,7 +19,9 @@ from coloc_tpu_torch.ops import patches as patch_ops
 _RADIUS = 3  # 7x7 window
 
 
-@functools.lru_cache(maxsize=8)
+# unbounded: a captured CUDA graph reads these tensors, and an evicted
+# entry's memory would be reused under it
+@functools.lru_cache(maxsize=None)
 def _moment_tables_on(radius: int, device: torch.device):
     # one host-to-device copy per radius and device, not one per frame
     return moment_tables(radius, device)

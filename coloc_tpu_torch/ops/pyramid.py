@@ -47,7 +47,9 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=64)
+# unbounded: a captured CUDA graph reads these tensors, and an evicted
+# entry's memory would be reused under it
+@functools.lru_cache(maxsize=None)
 def _resize_tensor(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     # one host-to-device copy per (shape, device), not one per frame
     return torch.from_numpy(_resize_matrix(n_in, n_out)).to(device)

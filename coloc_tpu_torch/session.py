@@ -16,12 +16,16 @@ bank.
       (a rebuild brought to the old map's scale), intra_pose_all,
       intra_pose (the same body at D = 1), inter_pose and
       inter_pose_round (inter-drone relative pose and ICI fusion through
-      parallel/mesh.inter_pose_device), run, and intra_pose_chunk /
-      run_chunked, which on the card replay the step as a captured CUDA
-      graph (coloc_tpu's lax.scan over the jitted step); run and
-      run_chunked fuse every `inter_every` frames and rebuild the map every
-      `update_map_every` (whole chunks) or after `auto_update_patience`
-      dead frames (chunks), eagerly
+      parallel/mesh.inter_pose_device), the map lifecycle (extend_map,
+      merge_map_from, cull_map: host numpy over the ported matchers,
+      localization and triangulation), run, and intra_pose_chunk /
+      run_chunked, which on the card replay the step, TRIP or AKAZE, as a
+      captured CUDA graph (coloc_tpu's lax.scan over the jitted step); run
+      and run_chunked fuse every `inter_every` frames and rebuild the map
+      every `update_map_every` (whole chunks) or after
+      `auto_update_patience` dead frames (chunks), eagerly; run also
+      extends the map every `extend_map_every` frames and culls it every
+      `cull_map_every`
 
 The host drives the events; tensors stay on the session's device, which is
 cuda:0 unless the caller asks for another. RANSAC draws are uniforms from
@@ -40,10 +44,9 @@ frame (the covariance, support, the Kalman update). Any masked iteration
 changes nothing, so the graphs give the eager step's bits. On the CPU the
 chunk runs that step eagerly frame by frame.
 
-Not ported yet, each raising NotImplementedError where it is asked for:
-the map lifecycle's extend_map and cull_map (run's extend_map_every and
-cull_map_every, ROADMAP A8), logging, checkpoints, the stage profiler and
-the debug output (A5b), the AKAZE frontend's captured chunk (A5a-3).
+Not ported yet, raising NotImplementedError where the constructor is
+asked for them: logging, checkpoints, the stage profiler, the debug output
+and the live view (ROADMAP A5b).
 """
 
 from __future__ import annotations
@@ -91,20 +94,23 @@ class _Frame(NamedTuple):
     matched: torch.Tensor    # (D, K) bool
 
 
+def _match_drones(cfg: ColocConfig, feats: Features, bank: hamming.Bank) -> Matches:
+    """D drones' features (D, K, ...) against the resident map bank in one
+    2-NN -> Matches (D, K): match_with_map of each drone."""
+    D, kp = feats.valid.shape
+    qv = feats.valid.reshape(-1)
+    idx, best, second = hamming.hamming_2nn_bank(feats.desc.reshape(D * kp, -1), qv, bank)
+    m = matching._accept(idx, best, second, qv, cfg.matcher, cfg.matcher.margin_threshold)
+    return Matches(*(t.reshape(D, kp) for t in m))
+
+
 def _step_head(cfg: ColocConfig, images, mapdb: MapDB, bank: hamming.Bank, Ks, dists,
                generator=None, sample_idx=None, uniforms=None
                ) -> Tuple[_Frame, ba.PoseLM]:
     """Detect, match and P3P-RANSAC D drones' frames (D, H, W) -> the frame
     and the pose LM's initial state."""
-    D = images.shape[0]
-    kp = cfg.detector.max_keypoints
     feats = detect_and_describe_batch(images, cfg.detector)
-    qv = feats.valid.reshape(-1)
-    idx, best, second = hamming.hamming_2nn_bank(
-        feats.desc.reshape(D * kp, -1), qv, bank)
-    m = matching._accept(idx, best, second, qv, cfg.matcher,
-                         cfg.matcher.margin_threshold)
-    mm = Matches(*(t.reshape(D, kp) for t in m))
+    mm = _match_drones(cfg, feats, bank)
     X, uv, corr = localize.correspondences(feats, mm, mapdb)
     pose0, inl, n_inl, ok = robust.absolute_pose_p3p(
         X, uv, corr, Camera(K=Ks, dist=dists), cfg.ransac, generator=generator,
@@ -605,11 +611,6 @@ class ColocSession:
                 outs.append(_chunk_out(pwcs, filtered, rej))
             res = _ChunkOut(*(torch.stack(v) for v in zip(*outs)))
         else:
-            if cfg.detector.backend == "akaze":
-                raise NotImplementedError(
-                    "the AKAZE frontend's step is not captured yet: its per-frame "
-                    "host-to-device copies (akaze.py, ops/mldb.py) would break the "
-                    "graph (ROADMAP A5a-3)")
             g = self._step_graphs(sample_idx is not None)
             draws = (sample_idx.to(device=self.device, dtype=torch.int64)
                      if sample_idx is not None
@@ -692,14 +693,176 @@ class ColocSession:
         return covint.FusionResult(cov=out.fused_cov, pos=out.fused_pos,
                                    omega=out.diag.omega, trace=out.diag.trace)
 
-    @staticmethod
-    def _refuse(lifecycle: Dict[str, object]) -> None:
-        """Raise for the options whose paths are not ported yet."""
-        asked = [k for k, v in lifecycle.items() if v]
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)}: extend_map and cull_map, the map lifecycle, "
-                "are not ported yet (ROADMAP A8)")
+    # ------------------------------------------------------ the map lifecycle
+    def extend_map(self, images, novelty_min_dist: int = 64,
+                   sample_idx: Optional[torch.Tensor] = None) -> int:
+        """Grow the map: triangulate new landmarks from the current frames
+        into free MapDB slots (coloc_tpu's extend_map, after the
+        reference's resection triangulation, Reconstructor.hpp:354-412):
+          1. every drone detected, matched against the resident bank and
+             P3P-localized in one step over the drone axis;
+          2. candidates: valid features unmatched and farther than
+             `novelty_min_dist` from every map descriptor;
+          3. each pair of localized drones (utils.exhaustive_pairs):
+             match_pair on the candidates, one landmark per train feature
+             (the lowest query keeps it), reconstruct._triangulate_pair
+             with the resection gates;
+          4. survivors into free slots with the first view's descriptor, up
+             to capacity; their features are consumed, so later pairs
+             cannot add them again.
+        Returns the number added. `sample_idx` (D, 256, 3) injects each
+        drone's P3P draws.
+        The pair loop is host numpy, as in coloc_tpu: map maintenance, not
+        the frame step."""
+        cfg = self.config
+        if not self.map_ready or self.mapdb is None:
+            return 0
+        valid_np = self.mapdb.valid.cpu().numpy().copy()
+        free = np.flatnonzero(~valid_np)
+        if free.size == 0:
+            return 0
+        D = cfg.num_drones
+        feats = detect_and_describe_batch(
+            torch.stack([self._image(images[d]) for d in range(D)]), cfg.detector)
+        mm = _match_drones(cfg, feats, self._map_bank())
+        pwcs, _ = localize.localize_image(
+            feats, mm, self.mapdb, Camera(K=self.Ks, dist=self.dists), cfg.ransac,
+            cfg.refiner, sample_idx=sample_idx,
+            uniforms=None if sample_idx is not None else self._draw(D),
+            check_every=LM_CHECK_EVERY)
+        loc_ok = pwcs.success.cpu().numpy()
+        cand = (feats.valid & ~mm.mask & (mm.best > novelty_min_dist)).cpu().numpy()
+
+        X_np = self.mapdb.X.cpu().numpy().copy()
+        desc_np = self.mapdb.desc.cpu().numpy().copy()
+        added = 0
+        for a, b in utils.exhaustive_pairs(D):
+            if added >= free.size or not (loc_ok[a] and loc_ok[b]):
+                continue
+            if not cand[a].any() or not cand[b].any():
+                continue
+            fa, fb = (Features(*(t[d] for t in feats))._replace(
+                valid=torch.from_numpy(cand[d]).to(self.device)) for d in (a, b))
+            idx = matching.match_pair(fa, fb, cfg.matcher).idx.cpu().numpy()
+            safe = np.clip(idx, 0, fb.capacity - 1)
+            ok = (idx >= 0) & cand[a] & cand[b][safe]
+            # injectivity: one new landmark per train feature, the lowest
+            # query keeps it
+            q = np.flatnonzero(ok)
+            ok[q] = False
+            ok[q[np.unique(idx[q], return_index=True)[1]]] = True
+            if not ok.any():
+                continue
+            Xn, okn = reconstruct._triangulate_pair(
+                pwcs.pose.R[a], pwcs.pose.C[a], pwcs.pose.R[b], pwcs.pose.C[b],
+                self.cams[a], self.cams[b], fa.xy,
+                fb.xy[torch.from_numpy(safe).long().to(self.device)],
+                torch.from_numpy(ok).to(self.device), reconstruct._MAX_Z_RESECTION,
+                reconstruct._MIN_RAY_ANGLE_DEG, 16.0)
+            take = np.flatnonzero(okn.cpu().numpy())[: free.size - added]
+            if take.size == 0:
+                continue
+            slots = free[added: added + take.size]
+            X_np[slots] = Xn.cpu().numpy()[take]
+            desc_np[slots] = fa.desc.cpu().numpy()[take]
+            valid_np[slots] = True
+            # consume the features so that later pairs cannot re-add them
+            cand[a][take] = False
+            cand[b][idx[take]] = False
+            added += take.size
+        if added:
+            self._set_slots(X_np, desc_np, valid_np)
+            self._stamp_new_slots(free[:added])
+        return added
+
+    def merge_map_from(self, other: MapDB, novelty_min_dist: int = 64,
+                       min_matches: int = 12) -> int:
+        """Merge another session's map into this one (coloc_tpu's
+        merge_map_from): utils.align_maps finds the Sim(3) taking `other`
+        into this map's frame from matched landmarks; `other`'s landmarks
+        unmatched both ways and farther than `novelty_min_dist` from every
+        descriptor here (match_maps(other, mapdb)) are moved by s R X + t
+        and written to free slots, up to capacity. Returns the number
+        added; 0, with `mapdb` the same object, when no alignment exists
+        (fewer than `min_matches` common landmarks), no slot is free or
+        nothing is novel. A map of coloc_tpu's arrives through
+        convert.mapdb_from_numpy."""
+        cfg = self.config
+        if not self.map_ready or self.mapdb is None:
+            return 0
+        aln = utils.align_maps(self.mapdb, other, cfg.matcher, min_matches)
+        if aln is None:
+            return 0
+        s, R, t, _, matched_b = aln
+        valid_np = self.mapdb.valid.cpu().numpy().copy()
+        free = np.flatnonzero(~valid_np)
+        if free.size == 0:
+            return 0
+        mrev = matching.match_maps(other, self.mapdb, cfg.matcher)
+        novel = (other.valid.cpu().numpy() & ~matched_b & ~mrev.mask.cpu().numpy()
+                 & (mrev.best.cpu().numpy() > novelty_min_dist))
+        take = np.flatnonzero(novel)[: free.size]
+        if take.size == 0:
+            return 0
+        Xb = other.X.cpu().numpy()[take]
+        X_np = self.mapdb.X.cpu().numpy().copy()
+        desc_np = self.mapdb.desc.cpu().numpy().copy()
+        slots = free[: take.size]
+        X_np[slots] = ((s * (R @ Xb.T)).T + t).astype(np.float32)
+        desc_np[slots] = other.desc.cpu().numpy()[take]
+        valid_np[slots] = True
+        self._set_slots(X_np, desc_np, valid_np)
+        self._stamp_new_slots(slots)
+        return int(take.size)
+
+    def _set_slots(self, X: np.ndarray, desc: np.ndarray, valid: np.ndarray) -> None:
+        """A new MapDB from host arrays (the bank and the captured step
+        follow it through their identity checks)."""
+        self.mapdb = MapDB(*(torch.from_numpy(a).to(self.device) for a in (X, desc, valid)))
+
+    def _stamp_new_slots(self, slots) -> None:
+        """Freshly written slots: zero support, the current frame as their
+        creation stamp (cull_map's grace window)."""
+        if len(slots) == 0:
+            return
+        self._ensure_support()
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        self.lm_support = self.lm_support.index_fill(0, idx, 0)
+        self.lm_last_seen = self.lm_last_seen.index_fill(0, idx, self.frame)
+
+    def cull_map(self, max_age: int = 64, min_support: int = 8,
+                 keep_min: int = 32) -> int:
+        """Retire landmarks that stopped earning inliers (coloc_tpu's
+        cull_map): a valid slot is culled when it is stale (frame -
+        lm_last_seen > max_age; new slots are stamped with their creation
+        frame) and unproven (lm_support < min_support). If fewer than
+        `keep_min` valid landmarks would remain, the strongest candidates
+        are spared: highest support first, then the most recent. Freed
+        slots get support 0 and lm_last_seen -1. Returns the number
+        culled; a cull replaces `mapdb` (its `valid`)."""
+        if not self.map_ready or self.mapdb is None:
+            return 0
+        self._ensure_support()
+        valid = self.mapdb.valid.cpu().numpy().copy()
+        sup = self.lm_support.cpu().numpy()
+        last = self.lm_last_seen.cpu().numpy()
+        cull = valid & (self.frame - last > max_age) & (sup < min_support)
+        n_valid, n_cull = int(valid.sum()), int(cull.sum())
+        if n_cull == 0:
+            return 0
+        if n_valid - n_cull < keep_min:
+            spare = min(keep_min - (n_valid - n_cull), n_cull)
+            cand = np.flatnonzero(cull)
+            order = np.lexsort((-last[cand], -sup[cand]))   # strongest first
+            cull[cand[order[:spare]]] = False
+            n_cull -= spare
+            if n_cull == 0:
+                return 0
+        self.mapdb = self.mapdb._replace(valid=torch.from_numpy(valid & ~cull).to(self.device))
+        freed = torch.from_numpy(np.flatnonzero(cull)).to(self.device)
+        self.lm_support = self.lm_support.index_fill(0, freed, 0)
+        self.lm_last_seen = self.lm_last_seen.index_fill(0, freed, -1)
+        return n_cull
 
     def _bootstrap(self, frames: Dict[int, list], num_frames: int) -> int:
         """init_map on the first frames that succeed -> the next frame."""
@@ -720,13 +883,13 @@ class ColocSession:
         `inter_every` (0: never), and update_map on every frame whose
         index is a multiple of `update_map_every` (0: never) or, with
         `auto_update_map`, after `auto_update_patience` consecutive frames
-        in which no drone localized. Returns the per-drone lists of
-        filtered poses. extend_map_every and cull_map_every (ROADMAP A8)
-        raise rather than being skipped."""
+        in which no drone localized; on a frame without a rebuild,
+        extend_map every `extend_map_every` frames (D >= 2); then, on its
+        own schedule, cull_map(cull_max_age, cull_min_support) every
+        `cull_map_every` frames. Returns the per-drone lists of filtered
+        poses."""
         cfg = self.config
         D = cfg.num_drones
-        self._refuse({"extend_map_every": extend_map_every,
-                      "cull_map_every": cull_map_every})
         num_frames = min(len(v) for v in frames.values())
         out = {d: [] for d in range(D)}
         f = self._bootstrap(frames, num_frames)
@@ -749,6 +912,10 @@ class ColocSession:
                     trigger, dead = True, 0
             if trigger:
                 self.update_map(images)
+            elif extend_map_every and frame_idx % extend_map_every == 0 and D >= 2:
+                self.extend_map(images)
+            if cull_map_every and frame_idx % cull_map_every == 0:
+                self.cull_map(max_age=cull_max_age, min_support=cull_min_support)
         return out
 
     def run_chunked(self, frames: Dict[int, list], chunk: int = 16,

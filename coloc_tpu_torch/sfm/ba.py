@@ -113,7 +113,9 @@ def _spd_inv(M: torch.Tensor, rel_floor: float = 1e-6) -> torch.Tensor:
     return torch.einsum("...ij,...j,...kj->...ik", evecs, inv_evals, evecs)
 
 
-@functools.lru_cache(maxsize=8)
+# unbounded: a captured CUDA graph reads these tensors, and an evicted
+# entry's memory would be reused under it
+@functools.lru_cache(maxsize=None)
 def _jacobi_tables(device: torch.device):
     """Per round: the flat (6x6) positions of (a_pp, a_qq, a_pq) of its 3
     pairs (9,), and of the rotation's (c, c, s, -s) entries (12,)."""

@@ -235,18 +235,20 @@ def test_rank_kernel_drone_axis_planted(dev, zmode):
             assert torch.equal(got[d], one)
 
 
-def _session_on(dev):
+def _session_on(dev, backend="trip"):
     """A D = 2 session on the card at the CPU tests' size (240x320, 4
     levels, 256 keypoints) with a 512-landmark map consistent with the
-    identity view, and two drones' frames near it."""
+    identity view, and two drones' frames near it; `backend` "akaze": the
+    AKAZE frontend with ratio matching."""
     from coloc_tpu_torch import config
     from coloc_tpu_torch.session import ColocSession
 
     H, W = 240, 320
     K = np.array([[0.6 * W, 0, W / 2], [0, 0.6 * W, H / 2], [0, 0, 1]], np.float32)
     det = config.DetectorOptions(width=W, height=H, max_keypoints=256, num_levels=4,
-                                 fast_threshold=12)
-    cfg = config.ColocConfig(num_drones=2, detector=det, max_landmarks=512)
+                                 fast_threshold=12, backend=backend)
+    matcher = config.MatcherOptions(mode="ratio" if backend == "akaze" else "margin")
+    cfg = config.ColocConfig(num_drones=2, detector=det, matcher=matcher, max_landmarks=512)
     scene = synthetic.make_scene(H, W, K, seed=1)
     eye = np.eye(3, dtype=np.float32)
     base = synthetic.render(scene, eye, np.zeros(3, np.float32)).astype(np.float32)
@@ -262,15 +264,18 @@ def _session_on(dev):
     return sess, images
 
 
-def test_captured_step_equals_eager(dev):
-    """The frame step replayed from its CUDA graphs against the eager step
-    on the same static inputs and uniforms, two frames from one state:
-    torch.equal on every output (pose, covariance, rmse, n_tracks,
-    success, gate decisions), the filter bank and the landmark support;
-    the graphs' launches counted at each replay."""
+# the launches of one replayed frame: TRIP's five kernels once each; AKAZE's
+# B10 once an octave (2 at 4 levels) and B11 for orientation and descriptor
+STEP_LAUNCHES = {
+    "trip": {"k2nn": 1, "p3p": 1, "ransac_rank": 1, "fast_nms": 1, "extract": 1},
+    "akaze": {"k2nn": 1, "p3p": 1, "ransac_rank": 1, "fed_octave": 2, "sample_raster": 2},
+}
+
+
+def _captured_step_equals_eager(dev, backend):
     from coloc_tpu_torch import session as sess_mod
 
-    sess, images = _session_on(dev)
+    sess, images = _session_on(dev, backend)
     u = torch.rand((2, 2, 256, 3), device=dev, generator=torch.Generator(dev).manual_seed(3))
     g = sess_mod._StepGraphs(sess)
     g.load(sess)
@@ -280,8 +285,8 @@ def test_captured_step_equals_eager(dev):
         out = g.replay(images, u[f])
         torch.cuda.synchronize()
         after = dispatch.launch_counts()
-        for name in ("k2nn", "p3p", "ransac_rank", "fast_nms", "extract"):
-            assert after[name] - before[name] == 1, name
+        for name, n in STEP_LAUNCHES[backend].items():
+            assert after[name] - before[name] == n, name
         pwcs, fb, filt, _, rej, _, sup_inc = sess_mod.intra_all_device_step(
             sess.config, images, sess.mapdb, sess._map_bank(), sess.Ks, sess.dists, fb,
             uniforms=u[f])
@@ -294,13 +299,28 @@ def test_captured_step_equals_eager(dev):
         assert bool(out.success.all())
 
 
-def test_chunk_with_injected_draws_equals_eager(dev):
-    """intra_pose_chunk on the card (captured, the draws injected as minimal
-    samples) against intra_pose_all frame by frame with the same samples:
-    equal outputs, filter bank, support and frame counter; and captured
-    again when the map changes."""
-    captured, images = _session_on(dev)
-    eager, _ = _session_on(dev)
+def test_captured_step_equals_eager(dev):
+    """The frame step replayed from its CUDA graphs against the eager step
+    on the same static inputs and uniforms, two frames from one state:
+    torch.equal on every output (pose, covariance, rmse, n_tracks,
+    success, gate decisions), the filter bank and the landmark support;
+    the graphs' launches counted at each replay."""
+    _captured_step_equals_eager(dev, "trip")
+
+
+def test_captured_akaze_step_equals_eager(dev):
+    """The same with the AKAZE frontend: B10's cooperative launches and
+    B11 replayed from the graphs, every output equal to the eager step."""
+    _captured_step_equals_eager(dev, "akaze")
+
+
+def _chunk_equals_eager(dev, backend):
+    """intra_pose_chunk (captured, the draws injected as minimal samples)
+    against intra_pose_all frame by frame with the same samples: equal
+    outputs, filter bank, support and frame counter. -> (the captured
+    session, the eager one, the block, the samples)."""
+    captured, images = _session_on(dev, backend)
+    eager, _ = _session_on(dev, backend)
     idx = torch.randint(0, 100, (2, 2, 256, 3), device=dev,
                         generator=torch.Generator(dev).manual_seed(5))
     block = torch.stack([images, images.flip(0)])
@@ -319,6 +339,15 @@ def test_chunk_with_injected_draws_equals_eager(dev):
     assert torch.equal(captured.lm_support, eager.lm_support)
     assert torch.equal(captured.lm_last_seen, eager.lm_last_seen)
     assert captured.frame == 2
+    return captured, eager, block, idx
+
+
+def test_chunk_with_injected_draws_equals_eager(dev):
+    """intra_pose_chunk on the card (captured, the draws injected as minimal
+    samples) against intra_pose_all frame by frame with the same samples:
+    equal outputs, filter bank, support and frame counter; and captured
+    again when the map changes."""
+    captured, eager, block, idx = _chunk_equals_eager(dev, "trip")
     # a new map (a new MapDB, as init_map makes) is captured again
     old = captured._graphs
     captured.mapdb = eager.mapdb = captured.mapdb._replace(X=captured.mapdb.X + 0.0)
@@ -329,13 +358,16 @@ def test_chunk_with_injected_draws_equals_eager(dev):
         assert torch.equal(out[d][0].pose.C, res[d].pose.C)
 
 
-def test_step_reads_nothing_on_the_host(dev):
-    """One eager frame step with its draws injected on the card and the LM's
-    exit left to its done mask: under torch.cuda.set_sync_debug_mode
-    ("error") no operation synchronizes with the host."""
+def test_akaze_chunk_equals_eager(dev):
+    """The same chunk with the AKAZE frontend (ROADMAP A5a-3): every output,
+    the filter bank and the support equal to the eager frames."""
+    _chunk_equals_eager(dev, "akaze")
+
+
+def _step_reads_nothing(dev, backend):
     from coloc_tpu_torch import session as sess_mod
 
-    sess, images = _session_on(dev)
+    sess, images = _session_on(dev, backend)
     cfg = sess.config
     sess_mod.intra_all_device_step(cfg, images, sess.mapdb, sess._map_bank(), sess.Ks,
                                    sess.dists, sess.filter_bank, uniforms=sess._draw(2))
@@ -350,6 +382,19 @@ def test_step_reads_nothing_on_the_host(dev):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert out[0].pose.R.shape == (2, 3, 3)
+
+
+def test_step_reads_nothing_on_the_host(dev):
+    """One eager frame step with its draws injected on the card and the LM's
+    exit left to its done mask: under torch.cuda.set_sync_debug_mode
+    ("error") no operation synchronizes with the host."""
+    _step_reads_nothing(dev, "trip")
+
+
+def test_akaze_step_reads_nothing_on_the_host(dev):
+    """The same with the AKAZE frontend: its level, disc and MLDB tables are
+    per-device constants, so no host-to-device copy is left in the step."""
+    _step_reads_nothing(dev, "akaze")
 
 
 def _squares(h, w, value):
@@ -608,6 +653,31 @@ def test_fed_octave_kernel_equals_plain(dev, h, w):
     for g, w_, name in zip(got, want, ("L", "Lx", "Ly", "response")):
         assert g.shape == (2, 4, h, w)
         assert torch.equal(g, w_), name
+
+
+@pytest.mark.parametrize("h,w", [(120, 188), (480, 752)])
+def test_fed_octave_kernel_captured_equals_eager(dev, h, w):
+    """B10's cooperative launch captured into a CUDA graph by
+    torch.cuda.graph: each replay writes the planes an eager launch writes,
+    bit for bit, for new input written into the static buffers; the
+    capture launches nothing, a replay is one launch by the record."""
+    rng = np.random.default_rng(h + w)
+    _, cycles, sigma4s = diffusion.octave_schedule(4, 4, 1.6, 0.25)[0]
+    L = torch.from_numpy(rng.uniform(0, 1, (2, h, w)).astype(np.float32)).to(dev)
+    k2 = torch.tensor([0.01, 0.04], device=dev)
+    diffusion.fed_octave(L, k2, cycles, sigma4s)       # loads the library
+    torch.cuda.synchronize()
+    graph, record = torch.cuda.CUDAGraph(), {}
+    with dispatch.counted_capture(record), torch.cuda.graph(graph):
+        out = diffusion.fed_octave(L, k2, cycles, sigma4s)
+    assert record["fed_octave"] == 1
+    for trial in range(2):
+        L.copy_(torch.from_numpy(rng.uniform(0, 1, (2, h, w)).astype(np.float32)))
+        graph.replay()
+        want = diffusion.fed_octave(L, k2, cycles, sigma4s)
+        torch.cuda.synchronize()
+        for g, w_, name in zip(out, want, ("L", "Lx", "Ly", "response")):
+            assert torch.equal(g, w_), (trial, name)
 
 
 def _fed_equal_one_launch(dev, L, k2, cycles, sigma4s):
