@@ -114,6 +114,25 @@ matcher against a 262144-row bank. Phases:
                 keep_min floor; run(extend_map_every=10, cull_map_every=10)
                 over 4h's frames; each method's p50, launches (equal to the
                 counted call's), host reads and device kernels a call
+  4l plumbing — on 4d's configuration and bootstrap: a session with
+                out_dir, profile, debug_dir and a LiveViz through init_map,
+                L_EAGER eager frames, a checkpoint, run_chunked(chunk=CHUNK)
+                on CUDA graphs and a fusion; the checkpoint loaded into a
+                fresh session and stepped eagerly over the chunk's frames,
+                every output torch.equal and every log row text-equal to
+                the captured chunk's; CSV row counts, map.ply, the SVG
+                names, state.json, the profiler's stages, a trace_to file;
+                the sync check with out_dir set; host reads and graph nodes
+                a captured frame with and without out_dir; a CPU-written
+                checkpoint loaded on the card (seeded from its key); the
+                p50 of save_session, load_session and flush_logs
+  4m serving  — ServingEngine on 4b's bench map with the scene's depths and
+                SERVE_POSES renders of the bench scene: localize_frames and
+                localize_features within 4b's pose gate, each stream against
+                a single-stream localize_image with the same draws, set_map
+                with permuted slots; at SERVE_SIZES streams p50/p99 a
+                dispatch, streams/s, launches, host reads, device kernels,
+                the idle share, and B1 at Q = B x 1024 with its bound
   5. counters — every kernel of each path launched during its phase
 
 Any failed check raises and the script exits non-zero. The last two lines
@@ -123,6 +142,7 @@ of stdout are one JSON object per kernel and the run's result line.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -152,6 +172,14 @@ J_FRAMES, INIT_CALLS = 10, 5
 K_FRAME, LIFECYCLE_CALLS = 8, 5
 # 4k: the frames whose extend_map is held to the plain CPU path
 K_REF_FRAMES = (K_FRAME, 4)
+# 4l: eager frames before the checkpoint, timed calls of save_session,
+# load_session and flush_logs
+L_EAGER, L_CALLS = 3, 5
+# 4m: rendered poses of the bench scene, bench.py's stream counts and the
+# timed dispatches at each
+SERVE_POSES, SERVE_SIZES, SERVE_CALLS = 16, (8, 16, 32, 64), 20
+# 4m: a stream's pose against its truth, 4b's gate (rotation rad, centre m)
+SERVE_GATE = (1e-3, 1e-2)
 # host threads that render the synthetic sessions' frames
 RENDER_THREADS = 4
 WARMUP, ITERS = 10, 100
@@ -210,6 +238,8 @@ PATH_KERNELS = {
     "4j model H": ("k2nn", "fast_nms", "extract", "ransac_rank"),
     "4k extend_map": FRAME_KERNELS,
     "4k merge_map_from": ("k2nn",),
+    "4l plumbing": FRAME_KERNELS + BOOTSTRAP_KERNELS,
+    "4m serving": FRAME_KERNELS,
 }
 # the phase whose launches the kernels line reports
 LAUNCH_PHASE = {**{name: "4b frame" for name in FRAME_KERNELS},
@@ -718,11 +748,11 @@ def phase_4h(torch, np, dev, card, cfg_d, Ks2, dists2, frames, traj, counts):
     fb, sup, last = sess_c.filter_bank, sess_c.lm_support, sess_c.lm_last_seen
     for f in range(CHECKED):
         out = g.replay(block[f], u[f])
-        pwcs, fb, filt, _, rej, _, sup_inc = session.intra_all_device_step(
+        pwcs, fb, filt, dist_g, rej, eulers, sup_inc = session.intra_all_device_step(
             cfg_d, block[f], sess_c.mapdb, sess_c._map_bank(), sess_c.Ks, sess_c.dists, fb,
             uniforms=u[f])
         sup, last = session._support(sup, last, sup_inc, sess_c.frame + f)
-        want = session._chunk_out(pwcs, filt, rej)
+        want = session._chunk_out(pwcs, filt, rej, dist_g, eulers, fb.P)
         for name, a, b in zip(want._fields, out, want):
             check(torch.equal(a, b), f"4h: captured {name} of frame {f} differs from the "
                   f"eager step's")
@@ -796,11 +826,11 @@ def phase_4h_akaze(torch, np, dev, card, cfg_a, sess_a, frames_h, traj_h, counts
     fb, sup, last = sess_a.filter_bank, sess_a.lm_support, sess_a.lm_last_seen
     for f in range(CHECKED):
         got = g.replay(block[f], u[f])
-        pwcs, fb, filt, _, rej, _, sup_inc = session.intra_all_device_step(
+        pwcs, fb, filt, dist_g, rej, eulers, sup_inc = session.intra_all_device_step(
             cfg_a, block[f], sess_a.mapdb, sess_a._map_bank(), sess_a.Ks, sess_a.dists, fb,
             uniforms=u[f])
         sup, last = session._support(sup, last, sup_inc, sess_a.frame + f)
-        want = session._chunk_out(pwcs, filt, rej)
+        want = session._chunk_out(pwcs, filt, rej, dist_g, eulers, fb.P)
         for name, a, b in zip(want._fields, got, want):
             check(torch.equal(a, b), f"4h AKAZE: captured {name} of frame {f} differs from "
                   f"the eager step's")
@@ -1086,6 +1116,369 @@ def phase_4k(torch, np, dev, card, cfg_d, Ks2, dists2, frames_h, traj_h, counts)
         sessions = [fresh(state) for _ in range(2)]
         profile_frames(torch, f"4k {name}", lambda f: fn(sessions[f]), 2, unit="call")
     print(f"[time] 4k took {time.perf_counter() - t_4k:.1f} s")
+
+
+def phase_4l(torch, np, dev, card, cfg_d, Ks2, dists2, frames_h, counts):
+    """The session's plumbing on the card, on 4d's configuration and
+    bootstrap (frame 0 of 4h's trajectory): a session with out_dir,
+    profile=True, debug_dir and a LiveViz through init_map, L_EAGER eager
+    frames (intra_pose_all, then intra_pose of each drone on the last),
+    a checkpoint, one run_chunked(chunk=CHUNK) on CUDA graphs and a fusion;
+    the loaded checkpoint stepped eagerly over the chunk's frames, every
+    output torch.equal and every log row text-equal to the captured
+    chunk's; the CSV row counts, map.ply, the SVG names, state.json, the
+    profiler's stages, a trace_to file; the sync check with out_dir set;
+    host reads and graph nodes a captured frame with and without out_dir;
+    a checkpoint written on the CPU loaded into a card session (the
+    generator's device-type rule); save_session, load_session and
+    flush_logs p50."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from coloc_tpu_torch import checkpoint, session
+    from coloc_tpu_torch.io.liveviz import LiveViz
+    from coloc_tpu_torch.ops import dispatch
+    from coloc_tpu_torch.profiling import trace_to
+
+    t_4l = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="coloc-4l-"))
+    D, E = 2, L_EAGER
+    chunk = {d: frames_h[d][E + 1:E + 1 + CHUNK] for d in range(D)}
+    viz = LiveViz(port=0)
+
+    def rows(out_dir, name):
+        return (out_dir / name).read_text().splitlines()
+
+    def outputs(p):
+        return (*p.pose, p.cov, p.rmse, p.n_tracks, p.success)
+
+    try:
+        dispatch.reset_launch_counts()
+        a_dir = root / "a"
+        s_a = session.ColocSession(cfg_d, Ks2, dists2, seed=SEED, out_dir=str(a_dir),
+                                   profile=True, viz=viz, debug_dir=str(root / "svg"))
+        check(s_a.init_map({d: frames_h[d][0] for d in range(D)}), "4l: init_map failed")
+        for f in range(1, E):
+            s_a.frame = f
+            res = s_a.intra_pose_all({d: frames_h[d][f] for d in range(D)})
+            check(all(bool(res[d].success) for d in range(D)), f"4l frame {f} not localized")
+        check(len(rows(a_dir, "poses.txt")) == 1, "4l: intra_pose_all wrote before flush_logs")
+        s_a.frame = E
+        for d in range(D):
+            check(bool(s_a.intra_pose(d, frames_h[d][E]).success), f"4l intra_pose {d} failed")
+        check(len(rows(a_dir, "poses.txt")) == 1 + D, "4l: intra_pose did not log at once")
+        s_a.flush_logs()
+        check(len(rows(a_dir, "poses.txt")) == 1 + D * E, "4l: flush_logs")
+
+        # the checkpoint: saved after frame E, timed; loaded into sessions
+        ckpt = root / "after_eager.npz"
+        save_ms, load_ms = [], []
+        for _ in range(L_CALLS):
+            t0 = time.perf_counter()
+            checkpoint.save_session(str(ckpt), s_a)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+        b_dir = root / "b"
+        s_b = session.ColocSession(cfg_d, Ks2, dists2, seed=SEED + 1, out_dir=str(b_dir))
+        for _ in range(L_CALLS):
+            t0 = time.perf_counter()
+            checkpoint.load_session(str(ckpt), s_b)
+            torch.cuda.synchronize()
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+
+        # one chunk on CUDA graphs, and the same frames eagerly from the file
+        out_a = s_a.run_chunked(chunk, chunk=CHUNK)
+        torch.cuda.synchronize()
+        counts["4l plumbing"] = dispatch.launch_counts()
+        check(s_a._graphs is not None, "4l: run_chunked did not replay a captured graph")
+        out_b = {d: [] for d in range(D)}
+        for i in range(CHUNK):
+            s_b.frame = i
+            res = s_b.intra_pose_all({d: chunk[d][i] for d in range(D)})
+            for d in range(D):
+                out_b[d].append(res[d])
+        s_b.close()
+        for d in range(D):
+            for i, (pa, pb) in enumerate(zip(out_a[d], out_b[d])):
+                check(bool(pa.success), f"4l chunk frame {i} drone {d}: not localized")
+                check(all(torch.equal(x, y) for x, y in zip(outputs(pa), outputs(pb))),
+                      f"4l: the loaded session's eager frame {i} differs from the captured "
+                      f"chunk's (drone {d})")
+        for name in ("poses.txt", "poses_filtered.txt", "mahalanobis.txt"):
+            ra, rb = rows(a_dir, name), rows(b_dir, name)
+            head = 0 if name == "mahalanobis.txt" else 1
+            check(len(ra) == head + D * (E + CHUNK) and len(rb) == head + D * CHUNK,
+                  f"4l {name}: {len(ra)} and {len(rb)} rows")
+            check(ra[head + D * E:] == rb[head:], f"4l {name}: the captured chunk's rows are "
+                  f"not the eager frames' rows")
+
+        # a fusion on the chunk's last frame: guided residuals, a (dest, src)
+        # row, the inter overlays
+        last = {d: chunk[d][-1] for d in range(D)}
+        s_a.frame = CHUNK - 1
+        check(s_a.inter_pose(0, 1, last) is not None, "4l: inter_pose failed")
+        guided = rows(a_dir, "guidedmatches2.txt")
+        fused_row = rows(a_dir, "poses_filtered.txt")[-1].split(",")
+        check(len(guided) > 0 and fused_row[:3] == [str(CHUNK - 1), "1", "0"],
+              f"4l: guidedmatches2.txt {len(guided)} rows, fused row {fused_row[:3]}")
+        s_a.close()
+
+        ply = rows(a_dir, "map.ply")
+        n_ply = int(s_a.scene.X_valid.sum()) + s_a.scene.Rs.shape[0]
+        check(f"element vertex {n_ply}" in ply and len(ply) == 10 + n_ply,
+              f"4l map.ply: {len(ply) - 10} vertices, {n_ply} expected")
+        want = {"init_features_d0.svg", "init_features_d1.svg", "init_putative_0_1.svg",
+                "init_inlier_0_1.svg", f"inter{CHUNK - 1:04d}_s0_d1_putative.svg",
+                f"inter{CHUNK - 1:04d}_s0_d1_guided.svg"}
+        want |= {f"frame{f:04d}_d{d}_{k}.svg" for f in range(1, E + 1) for d in range(D)
+                 for k in ("features", "map_matches")}
+        names = {p.name for p in (root / "svg").iterdir()}
+        check(names == want, f"4l SVGs: {sorted(names ^ want)} differ")
+        check(all((root / "svg" / n).read_text().startswith("<svg") for n in names),
+              "4l: an SVG does not start with <svg")
+        with urllib.request.urlopen(viz.url + "state.json", timeout=5) as r:
+            state = json.loads(r.read().decode())
+        check(set(state["poses"]) == {"0", "1"} and state["frame"] == CHUNK - 1
+              and len(state["map"]) == int(s_a.mapdb.valid.sum()),
+              f"4l state.json: poses {sorted(state['poses'])}, frame {state['frame']}, "
+              f"{len(state['map'])} map points")
+        prof = s_a.profiler.summary()
+        stages = {k: prof[k]["count"] for k in ("intra_step", "intra_step_all", "intra_chunk")}
+        check(stages == {"intra_step": D, "intra_step_all": E - 1, "intra_chunk": 1},
+              f"4l profiler stages {stages}")
+        with trace_to(str(root / "trace")):
+            s_b.intra_pose_all({d: chunk[d][0] for d in range(D)})
+            torch.cuda.synchronize()
+        traces = list((root / "trace").iterdir())
+        check(len(traces) == 1 and traces[0].stat().st_size > 0, "4l: trace_to wrote no trace")
+        print(f"[4l plumbing] init_map, {E} eager frames, a {CHUNK}-frame chunk on CUDA "
+              f"graphs and a fusion with out_dir, profile, debug_dir and a LiveViz: "
+              f"{len(rows(a_dir, 'poses.txt')) - 1} pose rows, {len(guided)} guided residuals, "
+              f"map.ply {n_ply} vertices, {len(names)} SVGs, state.json {len(state['map'])} map "
+              f"points; the loaded checkpoint's eager frames torch.equal to the captured "
+              f"chunk and its rows text-equal; profiler " + ", ".join(
+                  f"{k} n={v} p50 {prof[k]['p50_ms']:.3f} ms" for k, v in stages.items())
+              + f"; trace {traces[0].stat().st_size} bytes  ({card})")
+
+        # the sync check with out_dir set, and a captured frame's host reads
+        # and graph nodes with and without out_dir
+        imgs = torch.stack([torch.from_numpy(chunk[d][0]) for d in range(D)]).to(dev)
+        sync_check(torch, cfg_d, s_b, imgs, "4l out_dir, mode error", mode="error")
+        block = torch.stack([torch.stack([torch.from_numpy(chunk[d][i]) for d in range(D)])
+                             for i in range(CHUNK)]).to(dev)
+        per = {}
+        for tag, kw in (("out_dir", {"out_dir": str(root / "c")}), ("none", {})):
+            s_x = session.ColocSession(cfg_d, Ks2, dists2, seed=SEED, **kw)
+            checkpoint.load_session(str(ckpt), s_x)
+            s_x.intra_pose_chunk(block)              # captures
+            reads0 = s_x._graphs.host_reads
+            _, reads = host_reads(torch, lambda: s_x.intra_pose_chunk(block))
+            per[tag] = (reads / CHUNK, (s_x._graphs.host_reads - reads0) / CHUNK,
+                        s_x._graphs.node_count())
+            if tag == "out_dir":
+                entries = list(s_x._pending_logs)
+                check(len(entries) == 2 * CHUNK, f"4l: {len(entries)} queued entries")
+                flush_ms = []
+                for _ in range(L_CALLS):
+                    s_x._pending_logs = list(entries)
+                    t0 = time.perf_counter()
+                    s_x.flush_logs()
+                    flush_ms.append((time.perf_counter() - t0) * 1e3)
+        check(per["out_dir"] == per["none"], f"4l: a captured frame with out_dir {per['out_dir']}"
+              f", without {per['none']} (host reads, LM exit reads, graph nodes)")
+        print(f"[4l host reads] a captured frame, with and without out_dir: {per['none'][0]:.2f} "
+              f"synchronising operations ({per['none'][1]:.2f} of them the LM's exit), "
+              f"{per['none'][2] if per['none'][2] is not None else 'not measured'} graph nodes; "
+              f"flush_logs of {CHUNK} frames {percentiles(np, flush_ms)}; save_session "
+              f"{percentiles(np, save_ms)}, load_session {percentiles(np, load_ms)} over "
+              f"{L_CALLS} calls  ({card})")
+
+        # a checkpoint written on the CPU into a card session: seeded from key
+        s_cpu = session.ColocSession(cfg_d, Ks2, dists2, seed=SEED, device="cpu")
+        checkpoint.load_session(str(ckpt), s_cpu)
+        key = np.load(ckpt)["key"]
+        check(s_cpu.generator.initial_seed() == checkpoint.key_to_seed(key),
+              "4l: a card checkpoint on the CPU did not seed from its key")
+        ckpt_cpu = root / "cpu.npz"
+        checkpoint.save_session(str(ckpt_cpu), s_cpu)
+        s_g = session.ColocSession(cfg_d, Ks2, dists2, seed=SEED + 2)
+        checkpoint.load_session(str(ckpt_cpu), s_g)
+        key_cpu = np.load(ckpt_cpu)["key"]
+        check(s_g.generator.initial_seed() == checkpoint.key_to_seed(key_cpu),
+              "4l: a CPU checkpoint on the card did not seed from its key")
+        s_g.frame = E + 1
+        res = s_g.intra_pose_all({d: frames_h[d][E + 1] for d in range(D)})
+        check(all(bool(res[d].success) for d in range(D)),
+              "4l: the card session from a CPU checkpoint does not localize")
+        print(f"[4l checkpoint] card -> CPU -> card: each load on another device type seeded "
+              f"from key ({checkpoint.key_to_seed(key_cpu):#018x}); frame {E + 1} localized "
+              f"by both drones")
+    finally:
+        viz.close()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[time] 4l took {time.perf_counter() - t_4l:.1f} s")
+
+
+def phase_4m(torch, np, dev, card, cfg, opts, K, scene, counts):
+    """Batched serving on the card: 4b's bench map (the bench frame's
+    features, LANDMARKS slots) with the scene's plane depths, so that every
+    view agrees with it, and SERVE_POSES renders of the bench scene along
+    drone 0's trajectory. localize_frames and localize_features on them
+    (every stream within 4b's pose gate of its true pose); with injected
+    draws each stream against a single-stream localize_image; set_map with
+    permuted slots; then at SERVE_SIZES streams (bench.py's, the renders
+    repeated): p50/p99 a dispatch by CUDA events, streams/s, launches, host
+    reads, device kernels and the idle share; B1 at Q = B x KP against the
+    bank, held to its twin, with its bound."""
+    from coloc_tpu_torch import convert, serving
+    from coloc_tpu_torch.frontend import detect_and_describe, detect_and_describe_batch
+    from coloc_tpu_torch.io import synthetic
+    from coloc_tpu_torch.ops import dispatch, hamming
+    from coloc_tpu_torch.ransac import sample_indices
+    from coloc_tpu_torch.sfm import localize
+    from coloc_tpu_torch.types import Features, MapDB, Matches
+
+    t_4m = time.perf_counter()
+    cfg = dataclasses.replace(cfg, detector=opts)    # localize_frames' frontend
+    eye = np.eye(3, dtype=np.float32)
+    frame0 = synthetic.render(scene, eye, np.zeros(3, np.float32)).astype(np.float32)
+    f0 = convert.to_numpy(detect_and_describe(torch.from_numpy(frame0).to(dev), opts))
+    ma = synthetic.consistent_mapdb(f0, K, LANDMARKS, np.random.default_rng(SEED))
+    # the first KP landmarks at the depth of the plane each bearing meets
+    x, y = f0.xy[:, 0], f0.xy[:, 1]
+    near = synthetic._bilinear(scene.alphas[0], np.clip(x, 0, W - 1.01),
+                               np.clip(y, 0, H - 1.01)) > 0.5
+    Z = np.where(near, scene.depths[0], scene.depths[1])
+    X = ma.X.copy()
+    X[:KP] = ((np.linalg.inv(K) @ np.c_[f0.xy, np.ones(KP)].T).T * Z[:, None]).astype(np.float32)
+    mapdb = convert.mapdb_from_numpy(ma._replace(X=X), dev)
+    Rs, Cs = synthetic.trajectory(SERVE_POSES, 0)
+    images = render_frames(np, synthetic, scene, [(Rs, Cs)], SERVE_POSES)[0]
+    images = torch.from_numpy(np.stack(images)).to(dev)
+    R_gt, C_gt = torch.from_numpy(Rs).to(dev), torch.from_numpy(Cs).to(dev)
+    cam = convert.camera_from_numpy(K, device=dev)
+    eng = serving.ServingEngine(mapdb, cam, cfg)
+    check(eng.device == dev, f"ServingEngine chose {eng.device}, not {dev}")
+
+    def gate(tag, pwc, idx):
+        for b in range(pwc.success.shape[0]):
+            rot = rotation_error(torch, pwc.pose.R[b], R_gt[idx[b]])
+            c_err = float(torch.linalg.norm(pwc.pose.C[b] - C_gt[idx[b]]))
+            check(bool(pwc.success[b]) and rot < SERVE_GATE[0] and c_err < SERVE_GATE[1],
+                  f"4m {tag} stream {b}: success {bool(pwc.success[b])}, rotation {rot:.2e} "
+                  f"rad, centre {c_err:.2e} m")
+
+    dispatch.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    every = torch.arange(SERVE_POSES)
+    pwc_f, _, mm_f = eng.localize_frames(images, generator=gen)
+    gate("localize_frames", pwc_f, every)
+    feats = detect_and_describe_batch(images, opts)
+    pwc, inl, mm = eng.localize_features(feats, generator=gen)
+    gate("localize_features", pwc, every)
+    counts["4m serving"] = dispatch.launch_counts()
+    tracks = pwc.n_tracks.tolist()
+    print(f"[4m serving] {SERVE_POSES} streams of the bench scene along drone 0's trajectory "
+          f"(up to {float(np.linalg.norm(Cs, axis=1).max()):.3f} m from the map's view): "
+          f"localize_frames and localize_features every stream within {SERVE_GATE[0]} rad "
+          f"and {SERVE_GATE[1]} m; "
+          f"n_tracks {min(tracks)}-{max(tracks)}; launches {counts['4m serving']}  ({card})")
+
+    # each stream against a single-stream localize_image, same draws
+    draws = sample_indices(mm.mask & feats.valid, cfg.ransac.num_hypotheses, 3,
+                           torch.Generator(device=dev).manual_seed(SEED + 41))
+    pwc_i, inl_i, mm_i = eng.localize_features(feats, sample_idx=draws)
+    equal, d_rot, d_c = True, 0.0, 0.0
+    for b in range(SERVE_POSES):
+        one, inl1 = localize.localize_image(
+            Features(*(t[b] for t in feats)), Matches(*(t[b] for t in mm_i)), eng.mapdb, cam,
+            cfg.ransac, cfg.refiner, sample_idx=draws[b], check_every=serving.LM_CHECK_EVERY)
+        check(torch.equal(one.success, pwc_i.success[b]) and torch.equal(one.n_tracks,
+                                                                         pwc_i.n_tracks[b])
+              and torch.equal(inl1, inl_i[b]),
+              f"4m stream {b}: success, n_tracks or inliers differ from a single-stream call")
+        equal = equal and all(torch.equal(x, y) for x, y in zip(
+            (*one.pose, one.cov, one.rmse), (pwc_i.pose.R[b], pwc_i.pose.C[b], pwc_i.cov[b],
+                                              pwc_i.rmse[b])))
+        d_rot = max(d_rot, rotation_error(torch, one.pose.R, pwc_i.pose.R[b]))
+        d_c = max(d_c, float(torch.linalg.norm(one.pose.C - pwc_i.pose.C[b])))
+    # the RANSAC's outputs are equal; the pose LM's batched reductions round
+    # apart at another batch shape (5.6e-7 rad and 5.7e-6 m at most measured
+    # on the card), so the refined pose is held within 5e-6 rad and 5e-5 m
+    check(d_rot < 5e-6 and d_c < 5e-5, f"4m: streams {d_rot:.2e} rad, {d_c:.2e} m from "
+          f"single-stream calls")
+    print(f"[4m streams] with injected draws every stream against localize_image alone: "
+          f"success, n_tracks and inliers equal; pose, covariance and rmse bit-equal: {equal}; "
+          f"at most {d_rot:.2e} rad and {d_c:.2e} m apart")
+
+    # set_map with permuted slots: the same poses, the indices follow
+    perm = torch.randperm(LANDMARKS, generator=torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)
+    eng.set_map(MapDB(*(t[perm] for t in mapdb)))
+    pwc_p, _, mm_p = eng.localize_features(feats, sample_idx=draws)
+    inv = torch.argsort(perm).to(torch.int32)
+    ok = mm_i.idx >= 0
+    check(torch.equal(mm_p.idx >= 0, ok) and torch.equal(
+        mm_p.idx[ok], inv[mm_i.idx[ok].long()]), "4m set_map: the match indices do not follow")
+    dp = max(float((pwc_p.pose.R - pwc_i.pose.R).abs().max()),
+             float((pwc_p.pose.C - pwc_i.pose.C).abs().max()))
+    check(dp < 1e-4, f"4m set_map: poses {dp:.2e} apart")
+    eng.set_map(mapdb)
+    print(f"[4m set_map] {LANDMARKS} slots permuted: match indices follow, poses within "
+          f"{dp:.2e}")
+
+    # throughput and latency at bench.py's stream counts
+    bank = eng.bank
+    for B in SERVE_SIZES:
+        sel = torch.arange(B, device=dev) % SERVE_POSES
+        fb = Features(*(t[sel] for t in feats))
+        gen_b = torch.Generator(device=dev).manual_seed(SEED + B)
+        eng.localize_features(fb, generator=gen_b)          # warm-up
+        torch.cuda.synchronize()
+        before = dispatch.launch_counts()
+        ms, outs = [], []
+        t0 = time.perf_counter()
+        for _ in range(SERVE_CALLS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs.append(eng.localize_features(fb, generator=gen_b)[0])
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        wall = time.perf_counter() - t0
+        launches = {k: (v - before[k]) / SERVE_CALLS for k, v in dispatch.launch_counts().items()
+                    if v > before[k]}
+        for p in outs:
+            gate(f"B={B}", p, sel.cpu())
+        _, reads = host_reads(torch, lambda: eng.localize_features(fb, generator=gen_b))
+        print(f"[4m B={B}] localize_features {percentiles(np, ms)} a dispatch over "
+              f"{SERVE_CALLS}, {B * SERVE_CALLS / wall:.0f} streams/s; launches a dispatch "
+              f"{launches}; {reads} host reads a dispatch  ({card})")
+        check(all(launches.get(k, 0) >= 1 for k in ("k2nn", "p3p", "ransac_rank")),
+              f"4m B={B}: a dispatch launched {launches}")
+        profile_frames(torch, f"4m B={B}", lambda f: eng.localize_features(fb, generator=gen_b),
+                       2, unit="dispatch")
+        # B1 at this dispatch's shape: Q = B x KP queries against the bank
+        q, qv = fb.desc.reshape(B * KP, -1), fb.valid.reshape(-1)
+        out_k = hamming._hamming_2nn_cuda(q, qv, bank)
+        if B in (SERVE_SIZES[0], SERVE_SIZES[-1]):
+            out_p = hamming.hamming_2nn_plain(q, qv, bank)
+            check(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
+                  f"4m: B1 at Q={B * KP} differs from its twin")
+        bnd = bound(B * KP * 65 + LANDMARKS * 68 + 12 * B * KP, 2.0 * B * KP * LANDMARKS * 512,
+                    INT8_OPS)
+        k_ms = cuda_ms(lambda: hamming._hamming_2nn_cuda(q, qv, bank), iters=20)
+        k_dev = device_ms(lambda: hamming._hamming_2nn_cuda(q, qv, bank), "k2nn")
+        plain = ""
+        if B == SERVE_SIZES[0]:
+            p_ms = cuda_ms(lambda: hamming.hamming_2nn_plain(q, qv, bank), warmup=2, iters=5)
+            plain = f"; plain twin {p_ms:.4f} ms"
+        print(f"[4m B1] Q={B * KP} x T={LANDMARKS}: wrapper {fmt_ms(k_ms)}, device "
+              f"{fmt_ms(k_dev)}; bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}){plain}"
+              + ("; equal to the twin" if B in (SERVE_SIZES[0], SERVE_SIZES[-1]) else "")
+              + f"  ({card})")
+    print(f"[time] 4m took {time.perf_counter() - t_4m:.1f} s")
 
 
 def ici64(np, CA, CB, a, b):
@@ -3320,6 +3713,15 @@ def main(argv=None) -> int:
     lap("4k")
     # ---- phase 4k: the map lifecycle: extend, merge, cull, run's schedule
     phase_4k(torch, np, dev, card, cfg_d, Ks2, dists2, frames_h, traj_h, counts)
+
+    lap("4l")
+    # ---- phase 4l: the session's plumbing: logs, checkpoints, profiler,
+    # debug output and the live view, eager and on CUDA graphs
+    phase_4l(torch, np, dev, card, cfg_d, Ks2, dists2, frames_h, counts)
+
+    lap("4m")
+    # ---- phase 4m: batched serving (ServingEngine) at bench.py's sizes
+    phase_4m(torch, np, dev, card, cfg, opts, K, scene, counts)
 
     lap("5")
     # ---- phase 5: each path went through its kernels -------------------

@@ -9,8 +9,8 @@ Idiom: plain functions on tensors, NamedTuples of tensors for the data model
 `device` where a function creates tensors, and an explicit torch.Generator
 for RANSAC sampling.
 
-Ported so far (match+localize, the TRIP frontend, the session with the
-two-drone bootstrap and inter-drone fusion):
+Ported so far (match+localize, the TRIP and AKAZE frontends, the session
+with its bootstrap, fusion, map lifecycle and plumbing, batched serving):
   config, types, convert   — options, data model, numpy <-> tensor (a
                              coloc_tpu session's state included)
   ops/dispatch, ops/_build — device dispatch + launch counters, nvcc build
@@ -38,7 +38,14 @@ two-drone bootstrap and inter-drone fusion):
   fusion/covint            — inverse covariance intersection (ICI)
   utils, metrics           — map scale and Sim(3) alignment, ATE / RPE
   parallel/mesh            — inter_pose_device, the inter-drone fusion core
+  serving                  — make_serve_step, ServingEngine: B streams against
+                             one resident map in one step
+  checkpoint, profiling    — session save / load in coloc_tpu's format, the
+                             stage profiler and trace_to
   io/synthetic             — numpy-only scene renderer and workload generator
+  io/{loggers,svg,liveviz,disk}
+                           — CSV / PLY logs, SVG overlays, the live view,
+                             disk frames and calib.txt
 """
 
 __version__ = "0.1.0"

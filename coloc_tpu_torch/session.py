@@ -40,18 +40,37 @@ chunk and out after it, and the graphs are captured again when the map
 changes. The pose LM's exit is read once a frame: a head graph runs the
 step through LM_GRAPH_STEPS iterations, a middle graph runs LM_GRAPH_STEPS
 more while the host sees a lane still active, a tail graph finishes the
-frame (the covariance, support, the Kalman update). Any masked iteration
-changes nothing, so the graphs give the eager step's bits. On the CPU the
-chunk runs that step eagerly frame by frame.
+frame (the covariance, support, the Kalman update, and what a log row
+needs: the unfiltered centre, Euler angles, gate distance and filter
+covariance). Any masked iteration changes nothing, so the graphs give the
+eager step's bits. On the CPU the chunk runs that step eagerly frame by
+frame.
 
-Not ported yet, raising NotImplementedError where the constructor is
-asked for them: logging, checkpoints, the stage profiler, the debug output
-and the live view (ROADMAP A5b).
+The session's plumbing, wired where coloc_tpu wires it:
+  out_dir    — poses.txt, poses_filtered.txt and mahalanobis.txt
+      (io/loggers); intra_pose writes its rows at once, intra_pose_all
+      and intra_pose_chunk queue the step's outputs on the device and
+      flush_logs writes them (close, the context manager, and run /
+      run_chunked at 64 queued frames and on exit); inter_pose appends
+      guidedmatches2.txt and a fused (dest, src) row; init_map writes
+      map.ply
+  profile    — a StageProfiler (profiling.py) around each frame step
+      (intra_step, intra_step_all, intra_chunk: the replay, never the
+      capture), printed as it goes
+  debug_dir  — io/svg overlays of init_map's features and pairs, of each
+      frame's features and map matches (a second detect-and-match pass in
+      intra_pose and intra_pose_all) and of inter_pose's putative and
+      guided matches, under coloc_tpu's file names
+  viz        — an io/liveviz.LiveViz (or any object with publish_pose /
+      publish_map): every frame's filtered poses, and the map after
+      init_map, update_map, extend_map, merge_map_from and cull_map
+checkpoint.py saves and restores the persistent state.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -64,8 +83,10 @@ from coloc_tpu_torch.frontend import detect_and_describe, detect_and_describe_ba
 from coloc_tpu_torch.fusion import covint, kalman
 from coloc_tpu_torch.geometry import so3
 from coloc_tpu_torch.geometry.camera import Camera
+from coloc_tpu_torch.io import loggers, svg
 from coloc_tpu_torch.ops import dispatch, hamming
 from coloc_tpu_torch.parallel import mesh
+from coloc_tpu_torch.profiling import StageProfiler
 from coloc_tpu_torch.sfm import ba, localize, reconstruct
 from coloc_tpu_torch.types import (Features, MapDB, Matches, Pose, PoseWithCov,
                                    TwoViewGeometry)
@@ -184,20 +205,25 @@ def intra_all_device_step(
 
 
 class _ChunkOut(NamedTuple):
-    """A chunk's per-frame outputs, (F, D, ...) each."""
+    """A step's per-frame outputs, (D, ...) each, (F, D, ...) over a chunk:
+    the filtered pose and what a log row reads besides."""
 
     R: torch.Tensor         # filtered rotation
     C: torch.Tensor         # filtered centre
-    cov: torch.Tensor
+    cov: torch.Tensor       # (6, 6) localization covariance
     rmse: torch.Tensor
     n_tracks: torch.Tensor
     success: torch.Tensor
-    rejected: torch.Tensor
+    rejected: torch.Tensor  # the Kalman gate rejected the measurement
+    raw_C: torch.Tensor     # unfiltered (localized) centre
+    eulers: torch.Tensor    # (3,) Euler angles of the unfiltered rotation
+    dist_g: torch.Tensor    # the gate's distance
+    P: torch.Tensor         # (6, 6) filter covariance after the update
 
 
-def _chunk_out(pwcs: PoseWithCov, filtered: Pose, rej) -> _ChunkOut:
+def _chunk_out(pwcs: PoseWithCov, filtered: Pose, rej, dist_g, eulers, P) -> _ChunkOut:
     return _ChunkOut(filtered.R, filtered.C, pwcs.cov, pwcs.rmse, pwcs.n_tracks,
-                     pwcs.success, rej)
+                     pwcs.success, rej, pwcs.pose.C, eulers, dist_g, P)
 
 
 class _StepGraphs:
@@ -253,14 +279,14 @@ class _StepGraphs:
     def _tail(self) -> _ChunkOut:
         pwcs, sup_inc = _step_tail(self.cfg, self.frame_t, self.lm, self.Ks, self.dists,
                                    self.mapdb.X.shape[0])
-        fb, filtered, _, rej, _ = _filter_all(self.cfg, pwcs, self.fb)
+        fb, filtered, dist_g, rej, eulers = _filter_all(self.cfg, pwcs, self.fb)
         sup, last = _support(self.sup, self.last, sup_inc, self.frame)
         for old, new in zip(self.fb, fb):
             old.copy_(new)
         self.sup.copy_(sup)
         self.last.copy_(last)
         self.frame.add_(1)
-        return _chunk_out(pwcs, filtered, rej)
+        return _chunk_out(pwcs, filtered, rej, dist_g, eulers, fb.P)
 
     @staticmethod
     def _graph(fn, warmup: int = 2):
@@ -336,29 +362,35 @@ def graph_nodes(*graphs) -> Optional[int]:
     return total
 
 
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or array as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _cov6(P: np.ndarray) -> np.ndarray:
+    """A filter covariance (x, y, z, angles) in the logged (w, dC) order."""
+    cov6 = np.zeros((6, 6))
+    cov6[:3, :3] = P[3:6, 3:6]
+    cov6[3:6, 3:6] = P[:3, :3]
+    return cov6
+
+
 class ColocSession:
     """One collaborative-localization session over D drones (class ColoC).
 
     Attributes as coloc_tpu's: map_ready, mapdb, scene, filter_bank,
-    last_pose, frame, lm_support, lm_last_seen; plus bootstrap_geo and
-    bootstrap_ba, the bootstrap's TwoViewGeometry (of the seed pair) and
-    BAResult, bootstrap_views, the drone of each scene row (row 0's camera
-    is the world frame), and last_rejected, the (D,) gate rejections of
-    the last frame."""
+    last_pose, frame, lm_support, lm_last_seen, viz, profiler, debug_dir,
+    out_dir and its loggers; plus bootstrap_geo and bootstrap_ba, the
+    bootstrap's TwoViewGeometry (of the seed pair) and BAResult,
+    bootstrap_views, the drone of each scene row (row 0's camera is the
+    world frame), and last_rejected, the (D,) gate rejections of the last
+    frame. `generator` draws the RANSAC samples (seeded by `seed`)."""
 
     def __init__(self, config: ColocConfig, Ks, dists, out_dir: str = "",
                  seed: int = 0, profile: bool = False, viz=None,
                  debug_dir: str = "", device=None):
-        asked = [name for name, given in (("out_dir", bool(out_dir)),
-                                          ("profile", bool(profile)),
-                                          ("viz", viz is not None),
-                                          ("debug_dir", bool(debug_dir)))
-                 if given]
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)}: the session's logs, stage profiler, "
-                "SVG debug output and live view are not ported yet "
-                "(ROADMAP A5b)")
         self.config = config
         self.device = dispatch.default_device(device)
         D = config.num_drones
@@ -384,6 +416,109 @@ class ColocSession:
         self._bank = None
         self._bank_src = None
         self._graphs: Optional[_StepGraphs] = None   # intra_pose_chunk's
+        # queued log entries (frame, _ChunkOut of D drones), on the device
+        # until flush_logs
+        self._pending_logs: list = []
+        # the live view (io/liveviz.LiveViz, the rosUtils.hpp publisher's
+        # analog); nothing is published when None
+        self.viz = viz
+        # per-stage spans around each frame step (coloc.hpp:113-144's chrono
+        # prints), synchronised with the session's device
+        self.profiler = StageProfiler(enabled=profile, printer=print if profile else None,
+                                      device=self.device)
+        # the reference's #ifdef DEBUG overlays (coloc.hpp:153-159, 171-176,
+        # 189-192, 203-209, 232-239, 298-300): an inspection mode that costs a
+        # second detect-and-match pass a frame
+        self.debug_dir = debug_dir
+        if debug_dir:
+            os.makedirs(debug_dir, exist_ok=True)
+        self.out_dir = out_dir
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            self.pose_log = loggers.PoseLogger(os.path.join(out_dir, "poses.txt"))
+            self.filtered_log = loggers.PoseLogger(
+                os.path.join(out_dir, "poses_filtered.txt"))
+            self.gate_log = loggers.GateLogger(os.path.join(out_dir, "mahalanobis.txt"))
+        else:
+            self.pose_log = self.filtered_log = self.gate_log = None
+
+    # ------------------------------------------------ logs, overlays, view
+    def _debug_features(self, name: str, image, feats: Features,
+                        color: str = "green") -> None:
+        """drawFeatures-parity overlay (coloc.hpp:153-159 / :203-209)."""
+        if self.debug_dir:
+            svg.draw_features(os.path.join(self.debug_dir, name), _host(image),
+                              _host(feats.xy), _host(feats.valid), color=color)
+
+    def _debug_matches(self, name: str, img1, img2, xy1, xy2, idx, mask,
+                       color: str = "yellow") -> None:
+        """drawMatches-parity overlay (coloc.hpp:171-176 / :189-192 /
+        :232-239 / :298-300)."""
+        if self.debug_dir:
+            svg.draw_matches(os.path.join(self.debug_dir, name), _host(img1), _host(img2),
+                             _host(xy1), _host(xy2), _host(idx), _host(mask), color=color)
+
+    def _debug_intra(self, drone: int, image) -> None:
+        """A frame's overlays: its features and its accepted map matches
+        (coloc.hpp:203-209, 232-239), from a second detect-and-match pass
+        (the step keeps both on the device)."""
+        if not self.debug_dir:
+            return
+        feats = self.detect(image)
+        self._debug_features(f"frame{self.frame:04d}_d{drone}_features.svg", image, feats)
+        mm = matching.match_with_map(feats, self.mapdb, self.config.matcher,
+                                     bank=self._map_bank())
+        self._debug_features(f"frame{self.frame:04d}_d{drone}_map_matches.svg", image,
+                             feats._replace(valid=mm.mask), color="red")
+
+    def _publish_map(self) -> None:
+        if self.viz is not None:
+            self.viz.publish_map(_host(self.mapdb.X), _host(self.mapdb.valid))
+
+    def _publish_poses(self, frame: int, out: _ChunkOut) -> None:
+        """Each drone's filtered centre, filter position covariance and
+        success of one frame's outputs (D, ...) to the live view."""
+        if self.viz is None:
+            return
+        C, P, ok = _host(out.C), _host(out.P), _host(out.success)
+        for d in range(C.shape[0]):
+            self.viz.publish_pose(d, C[d], cov3=P[d, :3, :3], success=bool(ok[d]),
+                                  frame=frame)
+
+    def _logging(self) -> bool:
+        return bool(self.pose_log or self.filtered_log or self.gate_log)
+
+    def flush_logs(self) -> None:
+        """Write the queued log entries (intra_pose_all, intra_pose_chunk):
+        one copy of each output field to the host for all of them."""
+        pending, self._pending_logs = self._pending_logs, []
+        if not pending:
+            return
+        outs = _ChunkOut(*(torch.stack(v).cpu() for v in zip(*(o for _, o in pending))))
+        filt_eulers = so3.rot_to_euler(outs.R).numpy()
+        o = _ChunkOut(*(t.numpy() for t in outs))
+        for i, (frame, _) in enumerate(pending):
+            for d in range(o.C.shape[1]):
+                if self.pose_log:
+                    self.pose_log.log(frame, d, d, o.raw_C[i, d], o.cov[i, d], o.eulers[i, d],
+                                      o.rmse[i, d], o.n_tracks[i, d])
+                if self.gate_log:
+                    self.gate_log.log(d, o.dist_g[i, d])
+                if self.filtered_log:
+                    self.filtered_log.log(frame, d, d, o.C[i, d], _cov6(o.P[i, d]),
+                                          filt_eulers[i, d], o.rmse[i, d], o.n_tracks[i, d])
+
+    def close(self) -> None:
+        """Flush the queued log entries. Safe to call again; a session used
+        as a context manager flushes on exit."""
+        self.flush_logs()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
     def _image(self, image) -> torch.Tensor:
         if isinstance(image, torch.Tensor):
@@ -418,14 +553,17 @@ class ColocSession:
         if D < 2:
             raise ValueError(f"init_map needs two drones or more, not {D}")
         feats = {d: self.detect(images[d]) for d in range(D)}
+        for d in range(D):
+            self._debug_features(f"init_features_d{d}.svg", images[d], feats[d])
         if D > 2:
-            return self._init_map_multiview(feats, sample_idx or {}, resection_idx)
+            return self._init_map_multiview(images, feats, sample_idx or {}, resection_idx)
         f0, f1 = feats[0], feats[1]
         m = matching.match_pair(f0, f1, cfg.matcher)
         geo = robust.relative_pose(
             cfg.model, f0.xy, f1.xy[m.idx.long()], m.mask, self.cams[0], self.cams[1],
             cfg.ransac, generator=self.generator, sample_idx=sample_idx,
             check_every=BOOTSTRAP_CHECK_EVERY)
+        self._debug_pair(images, feats, 0, 1, m, geo)
         if not bool(geo.success):
             return False
         origin = Pose(R=torch.eye(3, device=self.device),
@@ -439,7 +577,17 @@ class ColocSession:
             check_every=BOOTSTRAP_CHECK_EVERY)
         return self._set_map(scene, geo, ba_res, [0, 1])
 
-    def _init_map_multiview(self, feats: Dict[int, Features], pair_idx: dict,
+    def _debug_pair(self, images, feats, a: int, b: int, m: Matches,
+                    geo: TwoViewGeometry) -> None:
+        """A bootstrap pair's putative and inlier matches."""
+        if self.debug_dir:
+            self._debug_matches(f"init_putative_{a}_{b}.svg", images[a], images[b],
+                                feats[a].xy, feats[b].xy, m.idx, m.mask)
+            self._debug_matches(f"init_inlier_{a}_{b}.svg", images[a], images[b],
+                                feats[a].xy, feats[b].xy, m.idx, m.mask & geo.inliers,
+                                color="lime")
+
+    def _init_map_multiview(self, images, feats: Dict[int, Features], pair_idx: dict,
                             resection_idx: Optional[list]) -> bool:
         """init_map for D > 2 (coloc_tpu's reconstruct_scene branch)."""
         cfg = self.config
@@ -450,6 +598,7 @@ class ColocSession:
                 cfg.model, feats[a].xy, feats[b].xy[m.idx.long()], m.mask,
                 self.cams[a], self.cams[b], cfg.ransac, generator=self.generator,
                 sample_idx=pair_idx.get((a, b)), check_every=BOOTSTRAP_CHECK_EVERY)
+            self._debug_pair(images, feats, a, b, m, geo)
             if bool(geo.success):
                 pair_matches[(a, b)], pair_geo[(a, b)] = m, geo
         if not pair_geo:
@@ -464,7 +613,8 @@ class ColocSession:
     def _set_map(self, scene: reconstruct.Scene, geo: TwoViewGeometry, ba_res,
                  views: list) -> bool:
         """Make a bootstrapped scene the session's map, unless fewer than 8
-        landmarks survived (then False, the old map kept)."""
+        landmarks survived (then False, the old map kept); publish it and
+        write map.ply."""
         if int(scene.X_valid.sum()) < 8:
             return False
         self.scene = scene
@@ -475,6 +625,10 @@ class ColocSession:
         # a wholesale (re)build: every slot is a fresh landmark
         self.lm_support = None
         self.lm_last_seen = None
+        self._publish_map()
+        if self.out_dir:
+            loggers.write_ply(os.path.join(self.out_dir, "map.ply"), _host(scene.X),
+                              _host(scene.X_valid), _host(scene.Cs))
         return True
 
     def update_map(self, images, sample_idx=None,
@@ -496,6 +650,7 @@ class ColocSession:
                                       1.0 / torch.clamp(scale, min=1e-6))
             self.scene = self.scene._replace(X=X, Cs=Cs)
             self.mapdb = reconstruct.scene_to_mapdb(self.scene)
+        self._publish_map()
         return True
 
     def _map_bank(self) -> hamming.Bank:
@@ -535,41 +690,71 @@ class ColocSession:
                        ) -> Dict[int, PoseWithCov]:
         """Localize every drone in one step: dict drone -> PoseWithCov with
         the filtered pose, the covariance, rmse, n_tracks and success.
-        `sample_idx` (D, 256, 3): injected P3P draws."""
+        `sample_idx` (D, 256, 3): injected P3P draws. The log rows are
+        queued: call flush_logs or close (run and run_chunked do) before
+        reading the files."""
         D = self.config.num_drones
+        for d in range(D):
+            self._debug_intra(d, images[d])
         imgs = torch.stack([self._image(images[d]) for d in range(D)])
         self._ensure_support()
-        pwcs, fb, filtered, _, rej, _, sup_inc = intra_all_device_step(
-            self.config, imgs, self.mapdb, self._map_bank(), self.Ks, self.dists,
-            self.filter_bank, sample_idx=sample_idx,
-            uniforms=None if sample_idx is not None else self._draw(D))
-        return self._finish_frame(pwcs, fb, filtered, rej, sup_inc)
+        with self.profiler.stage("intra_step_all"):
+            pwcs, fb, filtered, dist_g, rej, eulers, sup_inc = intra_all_device_step(
+                self.config, imgs, self.mapdb, self._map_bank(), self.Ks, self.dists,
+                self.filter_bank, sample_idx=sample_idx,
+                uniforms=None if sample_idx is not None else self._draw(D))
+        res = self._finish_frame(pwcs, fb, filtered, rej, sup_inc)
+        out = _chunk_out(pwcs, filtered, rej, dist_g, eulers, fb.P)
+        # the rows wait on the device until flush_logs: writing them now
+        # would read the frame's outputs on the host every frame
+        if self._logging():
+            self._pending_logs.append((self.frame, out))
+        self._publish_poses(self.frame, out)
+        return res
 
     def intra_pose(self, drone: int, image,
                    sample_idx: Optional[torch.Tensor] = None) -> PoseWithCov:
         """One drone's frame (intraPoseEstimator, coloc.hpp:201-271): the
         step's body at D = 1, then kalman.update of that drone's filter.
         Returns the filtered pose with the covariance, rmse, n_tracks and
-        success. `sample_idx` (256, 3): injected P3P draws."""
+        success; its log rows are written at once. `sample_idx` (256, 3):
+        injected P3P draws."""
         cfg = self.config
+        self._debug_intra(drone, image)
         self._ensure_support()
         d = slice(drone, drone + 1)
-        frame, lm = _step_head(
-            cfg, self._image(image)[None], self.mapdb, self._map_bank(), self.Ks[d],
-            self.dists[d], sample_idx=None if sample_idx is None else sample_idx[None],
-            uniforms=None if sample_idx is not None else self._draw(1))
-        lm = ba.pose_lm_run(lm, frame.X, frame.uv, frame.inliers, self.Ks[d],
-                            self.dists[d], cfg.refiner, LM_CHECK_EVERY)
-        pwcs, sup_inc = _step_tail(cfg, frame, lm, self.Ks[d], self.dists[d],
-                                   self.mapdb.X.shape[0])
-        self.filter_bank, filtered, _, _ = kalman.update(
-            self.filter_bank, drone, kalman.fill_measurement(pwcs.pose)[0],
-            pwcs.cov[0, 3:6, 3:6], pwcs.rmse[0], pwcs.success[0], cfg.filter)
+        with self.profiler.stage("intra_step"):
+            frame, lm = _step_head(
+                cfg, self._image(image)[None], self.mapdb, self._map_bank(), self.Ks[d],
+                self.dists[d], sample_idx=None if sample_idx is None else sample_idx[None],
+                uniforms=None if sample_idx is not None else self._draw(1))
+            lm = ba.pose_lm_run(lm, frame.X, frame.uv, frame.inliers, self.Ks[d],
+                                self.dists[d], cfg.refiner, LM_CHECK_EVERY)
+            pwcs, sup_inc = _step_tail(cfg, frame, lm, self.Ks[d], self.dists[d],
+                                       self.mapdb.X.shape[0])
+            self.filter_bank, filtered, dist, _ = kalman.update(
+                self.filter_bank, drone, kalman.fill_measurement(pwcs.pose)[0],
+                pwcs.cov[0, 3:6, 3:6], pwcs.rmse[0], pwcs.success[0], cfg.filter)
         self.lm_support, self.lm_last_seen = _support(
             self.lm_support, self.lm_last_seen, sup_inc, self.frame)
         result = PoseWithCov(pose=filtered, cov=pwcs.cov[0], rmse=pwcs.rmse[0],
                              n_tracks=pwcs.n_tracks[0], success=pwcs.success[0])
         self.last_pose[drone] = result
+        if self._logging() or self.viz is not None:
+            P = _host(self.filter_bank.P[drone])
+            rmse, n_tracks = float(pwcs.rmse[0]), int(pwcs.n_tracks[0])
+        if self.pose_log:
+            self.pose_log.log(self.frame, drone, drone, _host(pwcs.pose.C[0]),
+                              _host(pwcs.cov[0]), _host(so3.rot_to_euler(pwcs.pose.R[0])),
+                              rmse, n_tracks)
+        if self.gate_log:
+            self.gate_log.log(drone, float(dist))
+        if self.filtered_log:
+            self.filtered_log.log(self.frame, drone, drone, _host(filtered.C), _cov6(P),
+                                  _host(so3.rot_to_euler(filtered.R)), rmse, n_tracks)
+        if self.viz is not None:
+            self.viz.publish_pose(drone, _host(filtered.C), cov3=P[:3, :3],
+                                  success=bool(pwcs.success[0]), frame=self.frame)
         return result
 
     def _captures(self) -> bool:
@@ -592,7 +777,9 @@ class ColocSession:
         bank and landmark support carried from frame to frame); self.frame
         advances by F. On a CUDA device the step replays as a captured CUDA
         graph (a capture that fails raises); on the CPU it runs eagerly
-        frame by frame. `sample_idx` (F, D, 256, 3): injected P3P draws."""
+        frame by frame. `sample_idx` (F, D, 256, 3): injected P3P draws.
+        The log rows are queued, as intra_pose_all's, and the live view
+        gets every frame."""
         cfg = self.config
         D = cfg.num_drones
         imgs = self._image(images)
@@ -601,26 +788,36 @@ class ColocSession:
         frame0 = self.frame
         if not self._captures():    # the plain path: eager, frame by frame
             outs = []
-            for f in range(F):
-                self.frame = frame0 + f
-                pwcs, fb, filtered, _, rej, _, sup_inc = intra_all_device_step(
-                    cfg, imgs[f], self.mapdb, self._map_bank(), self.Ks, self.dists,
-                    self.filter_bank, sample_idx=None if sample_idx is None else sample_idx[f],
-                    uniforms=None if sample_idx is not None else self._draw(D))
-                self._finish_frame(pwcs, fb, filtered, rej, sup_inc)
-                outs.append(_chunk_out(pwcs, filtered, rej))
+            with self.profiler.stage("intra_chunk"):
+                for f in range(F):
+                    self.frame = frame0 + f
+                    pwcs, fb, filtered, dist_g, rej, eulers, sup_inc = intra_all_device_step(
+                        cfg, imgs[f], self.mapdb, self._map_bank(), self.Ks, self.dists,
+                        self.filter_bank,
+                        sample_idx=None if sample_idx is None else sample_idx[f],
+                        uniforms=None if sample_idx is not None else self._draw(D))
+                    self._finish_frame(pwcs, fb, filtered, rej, sup_inc)
+                    outs.append(_chunk_out(pwcs, filtered, rej, dist_g, eulers, fb.P))
             res = _ChunkOut(*(torch.stack(v) for v in zip(*outs)))
         else:
+            # captured (or found) before the stage: a stage never sits
+            # inside a capture
             g = self._step_graphs(sample_idx is not None)
             draws = (sample_idx.to(device=self.device, dtype=torch.int64)
                      if sample_idx is not None
                      else torch.stack([self._draw(D) for _ in range(F)]))
             g.load(self)
-            res = _ChunkOut(*(torch.stack(v) for v in zip(*(
-                g.replay(imgs[f], draws[f]) for f in range(F)))))
+            with self.profiler.stage("intra_chunk"):
+                res = _ChunkOut(*(torch.stack(v) for v in zip(*(
+                    g.replay(imgs[f], draws[f]) for f in range(F)))))
             self.filter_bank = kalman.FilterBank(*(t.clone() for t in g.fb))
             self.lm_support, self.lm_last_seen = g.sup.clone(), g.last.clone()
             self.last_rejected = res.rejected[-1]
+        if self._logging():
+            self._pending_logs.extend(
+                (frame0 + f, _ChunkOut(*(t[f] for t in res))) for f in range(F))
+        for f in range(F):
+            self._publish_poses(frame0 + f, _ChunkOut(*(t[f] for t in res)))
         out = {d: [] for d in range(D)}
         for f in range(F):
             for d in range(D):
@@ -673,12 +870,21 @@ class ColocSession:
         the fusion failed; the result is returned, not written into the
         filter bank. `feats`: detected features to reuse, by drone.
         `sample_idx` (256, 5): injected five-point draws (coloc_tpu's
-        `key`); otherwise the session's generator draws them."""
+        `key`); otherwise the session's generator draws them. With out_dir
+        a fusion appends its guided residuals to guidedmatches2.txt and a
+        (dest, src) row to poses_filtered.txt."""
         if src not in self.last_pose or dst not in self.last_pose:
             return None
         feats = feats or {}
         f_src = feats[src] if src in feats else self.detect(images[src])
         f_dst = feats[dst] if dst in feats else self.detect(images[dst])
+        if self.debug_dir:
+            # the pair's putative matches (coloc.hpp:298-300), recomputed: the
+            # fused core keeps them on the device
+            m_dbg = matching.match_pair(f_src, f_dst, self.config.matcher)
+            self._debug_matches(f"inter{self.frame:04d}_s{src}_d{dst}_putative.svg",
+                                images[src], images[dst], f_src.xy, f_dst.xy, m_dbg.idx,
+                                m_dbg.mask)
         pose_src, pose_dst = self.last_pose[src], self.last_pose[dst]
         out = mesh.inter_pose_device(
             f_dst, f_src, self.cams[src], self.cams[dst],
@@ -690,8 +896,30 @@ class ColocSession:
             check_every=BOOTSTRAP_CHECK_EVERY)
         if not bool(out.ok):
             return None
-        return covint.FusionResult(cov=out.fused_cov, pos=out.fused_pos,
-                                   omega=out.diag.omega, trace=out.diag.trace)
+        diag = out.diag
+        # each matched landmark's observation in the temp scene's two views:
+        # the guided map-to-map matches (RobustMatcher::matchMaps parity)
+        self._debug_matches(f"inter{self.frame:04d}_s{src}_d{dst}_guided.svg",
+                            images[src], images[dst], diag.obs_src, diag.obs_dst,
+                            np.arange(diag.obs_dst.shape[0]), diag.guided_mask, color="lime")
+        if self.out_dir:
+            # their epipolar residuals under the robust src -> dst motion, the
+            # reference's guidedmatches2.txt
+            res = _host(utils.guided_match_residuals(
+                self.cams[src].K, self.cams[dst].K, diag.geo_R, diag.geo_t, diag.obs_src,
+                diag.obs_dst, diag.guided_mask))
+            with open(os.path.join(self.out_dir, "guidedmatches2.txt"), "a") as fh:
+                for r in res[_host(diag.guided_mask)]:
+                    fh.write(f"{float(r)}\n")
+        fused = covint.FusionResult(cov=out.fused_cov, pos=out.fused_pos,
+                                    omega=diag.omega, trace=diag.trace)
+        if self.filtered_log:
+            cov6 = np.zeros((6, 6), np.float32)
+            cov6[3:6, 3:6] = _host(fused.cov)
+            self.filtered_log.log(self.frame, dst, src, _host(fused.pos), cov6,
+                                  _host(so3.rot_to_euler(pose_dst.pose.R)),
+                                  float(diag.rmse), int(diag.n_inliers))
+        return fused
 
     # ------------------------------------------------------ the map lifecycle
     def extend_map(self, images, novelty_min_dist: int = 64,
@@ -773,6 +1001,7 @@ class ColocSession:
         if added:
             self._set_slots(X_np, desc_np, valid_np)
             self._stamp_new_slots(free[:added])
+            self._publish_map()
         return added
 
     def merge_map_from(self, other: MapDB, novelty_min_dist: int = 64,
@@ -813,6 +1042,7 @@ class ColocSession:
         valid_np[slots] = True
         self._set_slots(X_np, desc_np, valid_np)
         self._stamp_new_slots(slots)
+        self._publish_map()
         return int(take.size)
 
     def _set_slots(self, X: np.ndarray, desc: np.ndarray, valid: np.ndarray) -> None:
@@ -862,6 +1092,7 @@ class ColocSession:
         freed = torch.from_numpy(np.flatnonzero(cull)).to(self.device)
         self.lm_support = self.lm_support.index_fill(0, freed, 0)
         self.lm_last_seen = self.lm_last_seen.index_fill(0, freed, -1)
+        self._publish_map()
         return n_cull
 
     def _bootstrap(self, frames: Dict[int, list], num_frames: int) -> int:
@@ -886,8 +1117,9 @@ class ColocSession:
         in which no drone localized; on a frame without a rebuild,
         extend_map every `extend_map_every` frames (D >= 2); then, on its
         own schedule, cull_map(cull_max_age, cull_min_support) every
-        `cull_map_every` frames. Returns the per-drone lists of filtered
-        poses."""
+        `cull_map_every` frames. The queued log rows are flushed every 64
+        frames and when the run ends, also by an exception. Returns the
+        per-drone lists of filtered poses."""
         cfg = self.config
         D = cfg.num_drones
         num_frames = min(len(v) for v in frames.values())
@@ -896,26 +1128,34 @@ class ColocSession:
         if not self.map_ready:
             return out
         dead = 0
-        for frame_idx in range(f, num_frames):
-            self.frame = frame_idx
-            images = {d: frames[d][frame_idx] for d in range(D)}
-            res = self.intra_pose_all(images)
-            for d in range(D):
-                out[d].append(res[d])
-            if inter_every and frame_idx % inter_every == 0 and D >= 2:
-                self.inter_pose_round(images)
-            trigger = bool(update_map_every) and frame_idx % update_map_every == 0
-            if auto_update_map:
-                # reads the success flags from the device, only when asked
-                dead = dead + 1 if not any(bool(res[d].success) for d in range(D)) else 0
-                if dead >= auto_update_patience:
-                    trigger, dead = True, 0
-            if trigger:
-                self.update_map(images)
-            elif extend_map_every and frame_idx % extend_map_every == 0 and D >= 2:
-                self.extend_map(images)
-            if cull_map_every and frame_idx % cull_map_every == 0:
-                self.cull_map(max_age=cull_max_age, min_support=cull_min_support)
+        # flushed in `finally`: a failure mid-run keeps the frames already
+        # stepped (up to 64 queued)
+        try:
+            for frame_idx in range(f, num_frames):
+                self.frame = frame_idx
+                images = {d: frames[d][frame_idx] for d in range(D)}
+                res = self.intra_pose_all(images)
+                for d in range(D):
+                    out[d].append(res[d])
+                if inter_every and frame_idx % inter_every == 0 and D >= 2:
+                    self.inter_pose_round(images)
+                trigger = bool(update_map_every) and frame_idx % update_map_every == 0
+                if auto_update_map:
+                    # reads the success flags from the device, only when asked
+                    dead = dead + 1 if not any(bool(res[d].success) for d in range(D)) else 0
+                    if dead >= auto_update_patience:
+                        trigger, dead = True, 0
+                if trigger:
+                    self.update_map(images)
+                elif extend_map_every and frame_idx % extend_map_every == 0 and D >= 2:
+                    self.extend_map(images)
+                if cull_map_every and frame_idx % cull_map_every == 0:
+                    self.cull_map(max_age=cull_max_age, min_support=cull_min_support)
+                # a bounded queue, flushed in bulk
+                if len(self._pending_logs) >= 64:
+                    self.flush_logs()
+        finally:
+            self.flush_logs()
         return out
 
     def run_chunked(self, frames: Dict[int, list], chunk: int = 16,
@@ -931,8 +1171,8 @@ class ColocSession:
         deviation from run's per-frame schedule), on the chunk's last
         frame; `auto_update_map` counts the chunks in which no drone
         localized on any frame and rebuilds the map after
-        `auto_update_patience` such chunks in a row. Returns the per-drone
-        lists of filtered poses."""
+        `auto_update_patience` such chunks in a row. The log rows are
+        flushed as run's. Returns the per-drone lists of filtered poses."""
         cfg = self.config
         D = cfg.num_drones
         num_frames = min(len(v) for v in frames.values())
@@ -943,36 +1183,42 @@ class ColocSession:
         inter_chunks = max(1, -(-inter_every // chunk)) if inter_every else 0
         update_chunks = max(1, -(-update_map_every // chunk)) if update_map_every else 0
         chunks_done = dead = 0
-        while f < num_frames:
-            n = min(chunk, num_frames - f)
-            if n == chunk:
-                block = torch.stack([torch.stack([self._image(frames[d][f + i])
-                                                  for d in range(D)]) for i in range(n)])
-                self.frame = f
-                res = self.intra_pose_chunk(block)
-            else:
-                res = {d: [] for d in range(D)}
-                for i in range(n):
-                    self.frame = f + i
-                    r = self.intra_pose_all({d: frames[d][f + i] for d in range(D)})
-                    for d in range(D):
-                        res[d].append(r[d])
-            for d in range(D):
-                out[d].extend(res[d])
-            f += n
-            chunks_done += 1
-            if inter_chunks and chunks_done % inter_chunks == 0 and D >= 2:
-                # the round's frame is the chunk's last
-                self.frame = f - 1
-                self.inter_pose_round({d: frames[d][f - 1] for d in range(D)})
-                self.frame = f
-            trigger = bool(update_chunks) and chunks_done % update_chunks == 0
-            if auto_update_map:
-                # one read of the chunk's success flags, only when asked
-                alive = bool(torch.stack([p.success for d in range(D) for p in res[d]]).any())
-                dead = 0 if alive else dead + 1
-                if dead >= auto_update_patience:
-                    trigger, dead = True, 0
-            if trigger:
-                self.update_map({d: frames[d][f - 1] for d in range(D)})
+        try:
+            while f < num_frames:
+                n = min(chunk, num_frames - f)
+                if n == chunk:
+                    block = torch.stack([torch.stack([self._image(frames[d][f + i])
+                                                      for d in range(D)]) for i in range(n)])
+                    self.frame = f
+                    res = self.intra_pose_chunk(block)
+                else:
+                    res = {d: [] for d in range(D)}
+                    for i in range(n):
+                        self.frame = f + i
+                        r = self.intra_pose_all({d: frames[d][f + i] for d in range(D)})
+                        for d in range(D):
+                            res[d].append(r[d])
+                for d in range(D):
+                    out[d].extend(res[d])
+                f += n
+                chunks_done += 1
+                if inter_chunks and chunks_done % inter_chunks == 0 and D >= 2:
+                    # the round's frame is the chunk's last
+                    self.frame = f - 1
+                    self.inter_pose_round({d: frames[d][f - 1] for d in range(D)})
+                    self.frame = f
+                trigger = bool(update_chunks) and chunks_done % update_chunks == 0
+                if auto_update_map:
+                    # one read of the chunk's success flags, only when asked
+                    alive = bool(torch.stack([p.success for d in range(D)
+                                              for p in res[d]]).any())
+                    dead = 0 if alive else dead + 1
+                    if dead >= auto_update_patience:
+                        trigger, dead = True, 0
+                if trigger:
+                    self.update_map({d: frames[d][f - 1] for d in range(D)})
+                if len(self._pending_logs) >= 64:
+                    self.flush_logs()
+        finally:
+            self.flush_logs()
         return out

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from coloc_tpu_torch.ops.dispatch import default_device
+
 DESC_WORDS = 16  # 512-bit binary descriptors as 16 x 32-bit words
 
 
@@ -88,3 +90,27 @@ class MapDB(NamedTuple):
     @property
     def count(self) -> torch.Tensor:
         return self.valid.to(torch.int32).sum()
+
+
+def empty_features(capacity: int, device=None) -> Features:
+    """`capacity` zero keypoints, all invalid, on `device` (None: cuda:0,
+    raising where there is none)."""
+    dev = default_device(device)
+    return Features(
+        xy=torch.zeros((capacity, 2), dtype=torch.float32, device=dev),
+        score=torch.zeros((capacity,), dtype=torch.float32, device=dev),
+        scale=torch.zeros((capacity,), dtype=torch.int32, device=dev),
+        angle=torch.zeros((capacity,), dtype=torch.float32, device=dev),
+        desc=torch.zeros((capacity, DESC_WORDS), dtype=torch.int32, device=dev),
+        valid=torch.zeros((capacity,), dtype=torch.bool, device=dev),
+    )
+
+
+def empty_mapdb(capacity: int, device=None) -> MapDB:
+    """A map of `capacity` free slots on `device` (None: cuda:0)."""
+    dev = default_device(device)
+    return MapDB(
+        X=torch.zeros((capacity, 3), dtype=torch.float32, device=dev),
+        desc=torch.zeros((capacity, DESC_WORDS), dtype=torch.int32, device=dev),
+        valid=torch.zeros((capacity,), dtype=torch.bool, device=dev),
+    )

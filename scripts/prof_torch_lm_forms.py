@@ -73,14 +73,14 @@ class ChainGraphs:
                                   self.cfg.refiner.max_iterations)
             pwcs, sup_inc = session._step_tail(self.cfg, fr, lm, self.Ks, self.dists,
                                                self.mapdb.X.shape[0])
-            fb, filtered, _, rej, _ = session._filter_all(self.cfg, pwcs, self.fb)
+            fb, filtered, dist_g, rej, eulers = session._filter_all(self.cfg, pwcs, self.fb)
             sup, last = session._support(self.sup, self.last, sup_inc, self.frame)
             for old, new in zip(self.fb, fb):
                 old.copy_(new)
             self.sup.copy_(sup)
             self.last.copy_(last)
             self.frame.add_(1)
-            outs.append(session._chunk_out(pwcs, filtered, rej))
+            outs.append(session._chunk_out(pwcs, filtered, rej, dist_g, eulers, fb.P))
         return session._ChunkOut(*(torch.stack(v) for v in zip(*outs)))
 
     load = session._StepGraphs.load
@@ -143,11 +143,11 @@ def main() -> int:
     # the eager step from the session's state: what every form must give
     want, fb, sup, last = [], sess.filter_bank, sess.lm_support, sess.lm_last_seen
     for f in range(FRAMES):
-        pwcs, fb, filt, _, rej, _, sup_inc = session.intra_all_device_step(
+        pwcs, fb, filt, dist_g, rej, eulers, sup_inc = session.intra_all_device_step(
             cfg, images[f], sess.mapdb, sess._map_bank(), sess.Ks, sess.dists, fb,
             uniforms=draws[f])
         sup, last = session._support(sup, last, sup_inc, sess.frame + f)
-        want.append(session._chunk_out(pwcs, filt, rej))
+        want.append(session._chunk_out(pwcs, filt, rej, dist_g, eulers, fb.P))
     want = session._ChunkOut(*(torch.stack(v) for v in zip(*want)))
 
     forms = {"(b) head, middle while active, tail": HeadTail(sess),

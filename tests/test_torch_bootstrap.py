@@ -279,11 +279,21 @@ def test_run_end_to_end(dataset):
     assert int(ts.filter_bank.steps.sum()) >= 2 * (FRAMES - 2)
 
 
-@pytest.mark.parametrize("what", ["out_dir"])
-def test_unported_paths_raise(what):
+def test_out_dir_writes_the_bootstrap_map_ply(bootstrap, tmp_path):
+    """A session with out_dir that takes the port's bootstrapped scene as
+    its map writes map.ply as coloc_tpu's writer does for that scene: its
+    valid landmarks white, its two camera centres green."""
+    from coloc_tpu.io import loggers as jloggers
+
+    _, ts, _, _ = bootstrap
     _, tc = _configs()
-    with pytest.raises(NotImplementedError, match="A5"):
-        TSession(tc, KS, DISTS, out_dir="logs", device="cpu")
+    s = TSession(tc, KS, DISTS, out_dir=str(tmp_path / "logs"), device="cpu")
+    assert s._set_map(ts.scene, ts.bootstrap_geo, ts.bootstrap_ba, [0, 1])
+    jloggers.write_ply(str(tmp_path / "ref.ply"), ts.scene.X.numpy(),
+                       ts.scene.X_valid.numpy(), ts.scene.Cs.numpy())
+    text = (tmp_path / "logs" / "map.ply").read_text()
+    assert text == (tmp_path / "ref.ply").read_text()
+    assert f"element vertex {int(ts.scene.X_valid.sum()) + 2}" in text
 
 
 def _features_stub():

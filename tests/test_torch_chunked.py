@@ -13,6 +13,8 @@ frame; tests/test_torch_kernels.py holds the captured graph to that step
 on the card.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ from coloc_tpu.io import synthetic as jsyn
 from coloc_tpu.ops import hamming as jhamming
 from coloc_tpu.session import ColocSession as JSession
 
+from coloc_tpu_torch import checkpoint as tckpt
 from coloc_tpu_torch import config as tcfg
 from coloc_tpu_torch import convert
 from coloc_tpu_torch.session import ColocSession as TSession
@@ -95,15 +98,16 @@ def _replay_draws(ts, log):
 
 
 @pytest.fixture(scope="module")
-def runs(frames):
+def runs(frames, tmp_path_factory):
     """coloc_tpu bootstrapped on frame 0, then intra_pose_chunk on frames
     1-2 and run_chunked(chunk=2) on frames 3-5 (one chunk, one frame
     alone); the port from coloc_tpu's bootstrapped state with the same
     draws. -> (coloc_tpu's chunk, run and state, the port's)."""
     jc, tc = _configs()
-    js = JSession(jc, KS, DISTS)
+    logs = tmp_path_factory.mktemp("chunk_logs")
+    js = JSession(jc, KS, DISTS, out_dir=str(logs / "ref"))
     assert js.init_map({0: frames[0][0], 1: frames[1][0]})
-    ts = TSession(tc, KS, DISTS, device="cpu")
+    ts = TSession(tc, KS, DISTS, out_dir=str(logs / "port"), device="cpu")
     convert.session_state_from_numpy(js, ts)
     log = []
     _record_draws(js, jc, log)
@@ -111,11 +115,15 @@ def runs(frames):
     block = np.stack([[frames[d][f] for d in range(D)] for f in (1, 2)]).astype(np.float32)
     later = {d: frames[d][3:] for d in range(D)}
     js.frame = ts.frame = 1
+    # the port's state before the chunk, for the eager frames of
+    # test_chunk_log_rows_equal_eager_frames
+    tckpt.save_session(str(logs / "before_chunk.npz"), ts)
     jchunk, tchunk = js.intra_pose_chunk(block), ts.intra_pose_chunk(block)
     assert js.frame == ts.frame == 3
     jrun = js.run_chunked(later, chunk=2, inter_every=0)
     trun = ts.run_chunked(later, chunk=2, inter_every=0)
     assert len(log) == 3
+    np.save(logs / "chunk_draws.npy", log[0])
     return (jchunk, jrun, js), (tchunk, trun, ts)
 
 
@@ -160,3 +168,55 @@ def test_run_chunked_matches_reference(runs):
                                atol=0.03)
     assert np.abs(ts.lm_support.numpy() - np.asarray(js.lm_support)).sum() <= 2 * D * 5
     assert ts.frame == js.frame
+
+
+
+LOGS = ("poses.txt", "poses_filtered.txt", "mahalanobis.txt")
+
+
+def _rows(out_dir, name):
+    with open(os.path.join(out_dir, name)) as fh:
+        return [r.split(",") for r in fh.read().splitlines()]
+
+
+def test_chunk_logs_match_reference(runs):
+    """The rows the chunk and run_chunked queue, flushed at run_chunked's
+    end: the same files, header and rows (frame, dest, src) in the same
+    order as coloc_tpu's, ntracks within one borderline inlier and the
+    filtered centres within _agree's 0.03. The unfiltered poses, their
+    covariances and the gate distances carry C8's divergence further (up
+    to 0.07 m on this map's last frame, measured), so the new outputs are
+    held bit for bit by test_chunk_log_rows_equal_eager_frames instead."""
+    (_, _, js), (_, _, ts) = runs
+    for name in LOGS:
+        got, want = _rows(ts.out_dir, name), _rows(js.out_dir, name)
+        assert len(got) == len(want) == (3 + 2) * D + (name != "mahalanobis.txt")
+        head = 1 if name == "mahalanobis.txt" else 3
+        assert [r[:head] for r in got] == [r[:head] for r in want]
+        if name != "mahalanobis.txt":
+            assert all(abs(int(g[-1]) - int(w[-1])) <= 1 for g, w in zip(got[1:], want[1:]))
+    for g, w in zip(_rows(ts.out_dir, LOGS[1])[1:], _rows(js.out_dir, LOGS[1])[1:]):
+        np.testing.assert_allclose(np.asarray(g[3:6], float), np.asarray(w[3:6], float),
+                                   atol=0.03)
+
+
+def test_chunk_log_rows_equal_eager_frames(runs, frames, tmp_path):
+    """The chunk's rows (the new _ChunkOut fields: unfiltered centre, Euler
+    angles, gate distance, filter covariance) text-equal to the rows of the
+    same two frames stepped by intra_pose_all, with the same draws, from
+    the state saved before the chunk (checkpoint.load_session)."""
+    (_, _, _), (_, _, ts) = runs
+    logs = os.path.dirname(ts.out_dir)
+    draws = torch.from_numpy(np.load(os.path.join(logs, "chunk_draws.npy")))
+    _, tc = _configs()
+    te = TSession(tc, KS, DISTS, out_dir=str(tmp_path), device="cpu")
+    tckpt.load_session(os.path.join(logs, "before_chunk.npz"), te)
+    for i, f in enumerate((1, 2)):
+        te.frame = f
+        te.intra_pose_all({d: frames[d][f] for d in range(D)}, sample_idx=draws[i])
+    te.close()
+    for name in LOGS:
+        eager = _rows(str(tmp_path), name)
+        chunk = _rows(ts.out_dir, name)[:len(eager)]
+        assert len(eager) == 2 * D + (name != "mahalanobis.txt")
+        assert chunk == eager, name

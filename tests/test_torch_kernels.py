@@ -287,11 +287,11 @@ def _captured_step_equals_eager(dev, backend):
         after = dispatch.launch_counts()
         for name, n in STEP_LAUNCHES[backend].items():
             assert after[name] - before[name] == n, name
-        pwcs, fb, filt, _, rej, _, sup_inc = sess_mod.intra_all_device_step(
+        pwcs, fb, filt, dist_g, rej, eulers, sup_inc = sess_mod.intra_all_device_step(
             sess.config, images, sess.mapdb, sess._map_bank(), sess.Ks, sess.dists, fb,
             uniforms=u[f])
         sup, last = sess_mod._support(sup, last, sup_inc, sess.frame + f)
-        for a, b in zip(out, sess_mod._chunk_out(pwcs, filt, rej)):
+        for a, b in zip(out, sess_mod._chunk_out(pwcs, filt, rej, dist_g, eulers, fb.P)):
             assert torch.equal(a, b)
         for a, b in zip(g.fb, fb):
             assert torch.equal(a, b)

@@ -109,13 +109,44 @@ def test_session_init_takes_the_reference_parameters_in_order():
     assert [(p.name, p.default) for p in port[len(ref):]] == [("device", None)]
 
 
-@pytest.mark.parametrize("kwarg", [{"profile": True}, {"viz": object()},
-                                   {"debug_dir": "debug"}])
-def test_session_init_refuses_unported_options(kwarg):
-    from coloc_tpu_torch.session import ColocSession
+class _Recorder:
+    def __init__(self):
+        self.poses = []
 
-    with pytest.raises(NotImplementedError, match=f"{next(iter(kwarg))}.*A5b"):
-        ColocSession(*_session_args(), device="cpu", **kwarg)
+    def publish_pose(self, drone, C, cov3=None, success=True, frame=None):
+        self.poses.append((drone, frame))
+
+    def publish_map(self, X, valid=None):
+        pass
+
+
+@pytest.mark.parametrize("option", ["out_dir", "profile", "viz", "debug_dir"])
+def test_session_init_takes_the_plumbing_options(option, tmp_path, capsys):
+    """Each of coloc_tpu's plumbing options constructs on the CPU and does
+    its work on one intra_pose_all (tests/plumbing_cases.py's frame): the
+    three logs with a row a drone after flush_logs; a printed, summarised
+    intra_step_all stage; a pose a drone to the live view; the frame's
+    feature and map-match overlays."""
+    from plumbing_cases import frame, session
+
+    kw = {"out_dir": str(tmp_path / "logs"), "profile": True, "viz": _Recorder(),
+          "debug_dir": str(tmp_path / "svg")}[option]
+    s = session(2, **{option: kw})
+    s.frame = 4
+    s.intra_pose_all({0: frame(), 1: frame()})
+    s.flush_logs()
+    if option == "out_dir":
+        for name in ("poses.txt", "poses_filtered.txt", "mahalanobis.txt"):
+            rows = (tmp_path / "logs" / name).read_text().splitlines()
+            assert len(rows) == 2 + (name != "mahalanobis.txt")
+    elif option == "profile":
+        assert s.profiler.summary()["intra_step_all"]["count"] == 1
+        assert "[intra_step_all]" in capsys.readouterr().out
+    elif option == "viz":
+        assert s.viz.poses == [(0, 4), (1, 4)]
+    else:
+        assert sorted(p.name for p in (tmp_path / "svg").iterdir()) == [
+            f"frame0004_d{d}_{k}.svg" for d in (0, 1) for k in ("features", "map_matches")]
 
 
 def test_session_init_defaults_construct_on_cpu():
