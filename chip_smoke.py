@@ -133,6 +133,20 @@ matcher against a 262144-row bank. Phases:
                 with permuted slots; at SERVE_SIZES streams p50/p99 a
                 dispatch, streams/s, launches, host reads, device kernels,
                 the idle share, and B1 at Q = B x 1024 with its bound
+  4n runtime  — the runtime over the topic bus: the native transport and
+                loader libraries built with g++; ServeRunner at B=N_SERVE on
+                4m's map over an in-process broker (every pose received,
+                equal to the runner's return and to localize_frames from the
+                same generator state, within 4m's gate; round-trip p50/p99
+                beside localize_frames alone, host reads and launches a
+                dispatch); two DronePeers on two threads sharing 4d's saved
+                map over 4d's frames (poses equal to a one-drone session's,
+                each fuses the other's bundle; with injected draws
+                inter_fuse over the wire equal to session.inter_pose, 4i's
+                gates; bundle bytes, p50 beside inter_pose); then
+                `python -m coloc_tpu_torch.{serve,distributed,cli}` as
+                subprocesses on the card (serve fed by a robot node, two
+                peers over a write_dataset folder, the synthetic CLI run)
   5. counters — every kernel of each path launched during its phase
 
 Any failed check raises and the script exits non-zero. The last two lines
@@ -180,6 +194,10 @@ L_EAGER, L_CALLS = 3, 5
 SERVE_POSES, SERVE_SIZES, SERVE_CALLS = 16, (8, 16, 32, 64), 20
 # 4m: a stream's pose against its truth, 4b's gate (rotation rad, centre m)
 SERVE_GATE = (1e-3, 1e-2)
+# 4n: ServeRunner's streams, its timed round trips, the serve entry point's
+# dispatches, and the timed fusions over the wire
+N_SERVE, SERVE_ROUNDS, SERVE_STEPS, FUSE_CALLS = 8, 10, 3, 5
+PEER_FRAMES = 4       # 4n(d): the joining peer's frames; the broker's owner steps one more
 # host threads that render the synthetic sessions' frames
 RENDER_THREADS = 4
 WARMUP, ITERS = 10, 100
@@ -240,6 +258,8 @@ PATH_KERNELS = {
     "4k merge_map_from": ("k2nn",),
     "4l plumbing": FRAME_KERNELS + BOOTSTRAP_KERNELS,
     "4m serving": FRAME_KERNELS,
+    "4n serve runner": FRAME_KERNELS,
+    "4n peers": FRAME_KERNELS + BOOTSTRAP_KERNELS,
 }
 # the phase whose launches the kernels line reports
 LAUNCH_PHASE = {**{name: "4b frame" for name in FRAME_KERNELS},
@@ -1479,6 +1499,458 @@ def phase_4m(torch, np, dev, card, cfg, opts, K, scene, counts):
               + ("; equal to the twin" if B in (SERVE_SIZES[0], SERVE_SIZES[-1]) else "")
               + f"  ({card})")
     print(f"[time] 4m took {time.perf_counter() - t_4m:.1f} s")
+    return mapdb, images, R_gt, C_gt
+
+
+def wall_ms(torch, fn, n):
+    """fn() n times, each timed on the host clock with the card synchronised
+    after it -> (last result, [ms])."""
+    out, ms = None, []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def read_line(proc, prefix, tag, timeout=240.0):
+    """The first line of a subprocess's stdout that starts with `prefix`
+    (the lines before it are kept in proc.seen)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        proc.seen.append(line.rstrip())
+        if line.startswith(prefix):
+            return line.strip()
+    raise SmokeFailure(f"4n {tag}: no line starting {prefix!r}; output so far:\n"
+                       + "\n".join(proc.seen[-20:]))
+
+
+def entry_point(args, repo, log):
+    """`python -m <args>` from the checkout's root, stdout piped as text
+    and stderr to `log`."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(repo), PYTHONUNBUFFERED="1")
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=str(repo), env=env,
+                            stdout=subprocess.PIPE, stderr=log, text=True)
+    proc.seen = []
+    return proc
+
+
+def phase_4n(torch, np, dev, card, cfg, opts, K, scene, serve_w, cfg_d, map_path, frames,
+             traj, counts):
+    """The runtime over the topic bus: (a) the native libraries built with
+    g++; (b) ServeRunner at B = N_SERVE over an in-process broker against
+    4m's map and renders: every pose received, equal to the runner's
+    return and to ServingEngine.localize_frames from the same generator
+    state, within 4m's gate; round-trip p50/p99 beside localize_frames
+    alone, host reads and launches a dispatch; (c) two DronePeers on two
+    threads sharing 4d's saved map, stepping 4d's frames: poses equal to a
+    one-drone session's intra_pose with the same seed; bundles over the
+    bus, each fuses the other's; inter_fuse with injected draws equal to
+    session.inter_pose, inside 4i's gates; the bundle's bytes and
+    inter_fuse's p50 over the wire beside inter_pose's; (d) the three
+    entry points as subprocesses on the card."""
+    import shutil
+    import tempfile
+    import threading
+
+    from coloc_tpu_torch import checkpoint, distributed, serve, session
+    from coloc_tpu_torch.io import _native, disk, native_loader, synthetic, transport
+    from coloc_tpu_torch.matching import match_pair
+    from coloc_tpu_torch.ops import dispatch
+    from coloc_tpu_torch.parallel import mesh
+    from coloc_tpu_torch.ransac import sample_indices
+    from coloc_tpu_torch.types import Pose, PoseWithCov
+
+    t_4n = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    root = Path(tempfile.mkdtemp(prefix="coloc-4n-"))
+    procs = []
+    try:
+        # ---- (a) the native libraries
+        for name in ("transport", "loader"):
+            t0 = time.perf_counter()
+            try:
+                path = _native.build(name)
+            except RuntimeError as e:
+                check(name != "transport", f"4n: the transport library did not build: {e}")
+                print(f"[4n native] the loader did not build ({e}); the disk path reads "
+                      "the frames")
+                continue
+            print(f"[4n native] {path.name}: {time.perf_counter() - t0:.2f} s (g++ "
+                  f"{_native.build_seconds.get(name, 0.0):.2f} s)  ({card})")
+        check(transport.available(), "4n: the transport library does not load")
+        print(f"[4n native] loader available: {native_loader.available()}")
+
+        # ---- (b) ServeRunner over the bus, in process
+        mapdb, images, R_gt, C_gt = serve_w
+        cfg_s = dataclasses.replace(cfg, detector=opts)
+        frames_u8 = [np.clip(images[i].cpu().numpy(), 0, 255).astype(np.uint8)
+                     for i in range(N_SERVE)]
+        payloads = [transport.encode_image(i, frames_u8[i], 100.0 + i) for i in range(N_SERVE)]
+        with transport.Broker() as broker, transport.Node(broker.port) as server, \
+                transport.Node(broker.port) as robot:
+            runner = serve.ServeRunner(mapdb, cfg_s, K, np.zeros(3, np.float32), server,
+                                       N_SERVE, seed=SEED + 50)
+            check(runner.device == dev, f"ServeRunner chose {runner.device}, not {dev}")
+            for i in range(N_SERVE):
+                robot.subscribe(transport.pose_topic(i), depth=4)
+            time.sleep(0.1)      # the subscriptions reach the broker
+
+            parts = {"publish": [], "poll": [], "step": [], "receive": []}
+
+            def round_trip():
+                t0 = time.perf_counter()
+                for i in range(N_SERVE):
+                    robot.publish(transport.image_topic(i), payloads[i])
+                t1 = time.perf_counter()
+                fresh = runner.poll(timeout=5.0)
+                check(bool(fresh.all()), f"4n serve: fresh streams {fresh.tolist()}")
+                t2 = time.perf_counter()
+                out = runner.step(fresh)
+                t3 = time.perf_counter()
+                msgs = [robot.receive(transport.pose_topic(i), timeout=10.0)
+                        for i in range(N_SERVE)]
+                t4 = time.perf_counter()
+                for k, a, b in (("publish", t0, t1), ("poll", t1, t2), ("step", t2, t3),
+                                ("receive", t3, t4)):
+                    parts[k].append((b - a) * 1e3)
+                check(all(m is not None for m in msgs), "4n serve: a pose did not arrive")
+                return out, [transport.decode_pose(m) for m in msgs]
+
+            dispatch.reset_launch_counts()
+            state = runner.generator.get_state()
+            out, msgs = round_trip()
+            counts["4n serve runner"] = dispatch.launch_counts()
+            g = torch.Generator(device=dev)
+            g.set_state(state)
+            pwc, _, _ = runner.engine.localize_frames(
+                torch.from_numpy(np.stack(frames_u8)).to(dev).float(), generator=g)
+            C_ref = pwc.pose.C.cpu().numpy()
+            for i, m in enumerate(msgs):
+                check(m["drone"] == i and m["timestamp"] == 100.0 + i and m["success"],
+                      f"4n serve: stream {i}'s pose message {m['drone']}, {m['timestamp']}")
+                check(np.array_equal(m["C"], out[i]["C"].astype(np.float64)),
+                      f"4n serve: stream {i}'s decoded C differs from the runner's")
+                check(np.array_equal(out[i]["C"], C_ref[i]),
+                      f"4n serve: stream {i} differs from localize_frames with the same "
+                      "generator state")
+                rot = rotation_error(torch, pwc.pose.R[i], R_gt[i])
+                c_err = float(np.linalg.norm(C_ref[i] - C_gt[i].cpu().numpy()))
+                check(rot < SERVE_GATE[0] and c_err < SERVE_GATE[1],
+                      f"4n serve: stream {i} {rot:.2e} rad, {c_err:.2e} m from the truth")
+            print(f"[4n serve] {N_SERVE} frames of {H}x{W} over the bus: {N_SERVE} poses "
+                  f"received, equal to the runner's and to localize_frames from the same "
+                  f"generator state, every stream within {SERVE_GATE[0]} rad and "
+                  f"{SERVE_GATE[1]} m; launches {counts['4n serve runner']}  ({card})")
+
+            # round trips against localize_frames alone and its two halves,
+            # the batched frontend and localize_features, in turns
+            from coloc_tpu_torch.frontend import detect_and_describe_batch
+
+            imgs_d = torch.from_numpy(np.stack(frames_u8)).to(dev).float()
+            feats_b = detect_and_describe_batch(imgs_d, opts)
+            before = dispatch.launch_counts()
+            for v in parts.values():
+                v.clear()
+            rt_ms, lf_ms, fe_ms, lx_ms = [], [], [], []
+            for _ in range(SERVE_ROUNDS):
+                rt_ms += wall_ms(torch, round_trip, 1)[1]
+                lf_ms += wall_ms(torch, lambda: runner.engine.localize_frames(
+                    imgs_d, generator=runner.generator), 1)[1]
+                fe_ms += wall_ms(torch, lambda: detect_and_describe_batch(imgs_d, opts), 1)[1]
+                lx_ms += wall_ms(torch, lambda: runner.engine.localize_features(
+                    feats_b, generator=runner.generator), 1)[1]
+            # each kernel launches three times a round (step, localize_frames,
+            # and the half it belongs to)
+            per = {k: (v - before[k]) / (3 * SERVE_ROUNDS)
+                   for k, v in dispatch.launch_counts().items() if v > before[k]}
+            for i in range(N_SERVE):
+                robot.publish(transport.image_topic(i), payloads[i])
+            fresh = runner.poll(timeout=5.0)
+            _, reads = host_reads(torch, lambda: runner.step(fresh))
+            for i in range(N_SERVE):
+                robot.receive(transport.pose_topic(i), timeout=10.0)
+            print(f"[4n serve] round trip (publish {N_SERVE} frames, poll, dispatch, "
+                  f"{N_SERVE} poses received) {percentiles(np, rt_ms)}; localize_frames "
+                  f"alone {percentiles(np, lf_ms)}, over {SERVE_ROUNDS} each in turns; "
+                  f"bus and host share of the p50 "
+                  f"{1.0 - np.percentile(lf_ms, 50) / np.percentile(rt_ms, 50):.3f}; "
+                  f"launches a dispatch {per}; {reads} host reads a dispatch  ({card})")
+            print("[4n serve] the round trip's parts, p50 ms: "
+                  + ", ".join(f"{k} {np.percentile(v, 50):.3f}" for k, v in parts.items())
+                  + f"; localize_frames' halves alone: batched frontend "
+                  f"{percentiles(np, fe_ms)}, localize_features {percentiles(np, lx_ms)}  "
+                  f"({card})")
+
+        # ---- (c) two DronePeers on one broker, on two threads
+        mapdb_d = checkpoint.load_mapdb(str(map_path))
+        steps = range(1, len(frames[0]))
+        last = steps[-1]
+        peers, got, errors = {}, {}, []
+        with transport.Broker() as broker:
+            ready = threading.Barrier(2)
+
+            def body(d):
+                try:
+                    node = transport.Node(broker.port)
+                    peer = distributed.DronePeer(d, cfg_d, K, np.zeros(3, np.float32),
+                                                 mapdb_d, node, peers=[1 - d])
+                    peers[d] = (peer, node, [peer.step(frames[d][f]) for f in steps])
+                    ready.wait(timeout=120)
+                    fused, deadline = None, time.monotonic() + 60.0
+                    while fused is None and time.monotonic() < deadline:
+                        peer.publish_bundle()
+                        b = peer.receive_bundle(1 - d, timeout=1.0)
+                        if b is not None:
+                            got[d] = b
+                            fused = peer.inter_fuse(1 - d, bundle=b, publish=False)
+                    got[(d, "fused")] = fused
+                except Exception as e:  # noqa: BLE001 - reported by the main thread
+                    errors.append(f"peer {d}: {e!r}")
+                    ready.abort()
+
+            dispatch.reset_launch_counts()
+            threads = [threading.Thread(target=body, args=(d,)) for d in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            torch.cuda.synchronize()
+            counts["4n peers"] = dispatch.launch_counts()
+            check(not errors and all(not t.is_alive() for t in threads), f"4n peers: {errors}")
+            for d in range(2):
+                check(got.get((d, "fused")) is not None,
+                      f"4n peers: peer {d} did not fuse its partner's bundle")
+
+            # each peer's poses against a one-drone session with its seed
+            for d in range(2):
+                ref = session.ColocSession(dataclasses.replace(cfg_d, num_drones=1), K[None],
+                                           np.zeros((1, 3), np.float32), seed=d)
+                ref.mapdb, ref.map_ready = mapdb_d, True
+                for i, f in enumerate(steps):
+                    r = ref.intra_pose(0, frames[d][f])
+                    ref.frame += 1
+                    p = peers[d][2][i]
+                    check(all(torch.equal(a, b) for a, b in zip(
+                        (*p.pose, p.cov, p.rmse, p.n_tracks, p.success),
+                        (*r.pose, r.cov, r.rmse, r.n_tracks, r.success))),
+                        f"4n peers: peer {d}'s frame {f} differs from a one-drone session")
+            print(f"[4n peers] two DronePeers on two threads, {len(steps)} frames of 4d each: "
+                  f"every pose equal to a one-drone session's intra_pose with the same seed; "
+                  f"each fused its partner's bundle over the bus; launches "
+                  f"{counts['4n peers']}  ({card})")
+
+            # injected draws: inter_fuse over the wire against session.inter_pose
+            outs, real_core = [], mesh.inter_pose_device
+
+            def recording_core(*args, **kw):
+                outs.append(real_core(*args, **kw))
+                return outs[-1]
+
+            p0, node0, _ = peers[0]
+            p1, node1, _ = peers[1]
+            sizes = []
+
+            def over_wire(draws):
+                payload = p0.bundle()
+                sizes.append(len(payload))
+                node0.publish(transport.features_topic(0), payload)
+                return p1.inter_fuse(0, bundle=p1.receive_bundle(0, timeout=10.0),
+                                     publish=False, sample_idx=draws)
+
+            b0 = transport.decode_feature_bundle(p0.bundle())
+            f_src = transport.features_from_bundle(b0, dev)
+            f_dst = p1._current_feats()
+            m = match_pair(f_src, f_dst, cfg_d.matcher)
+            draws = sample_indices(m.mask, cfg_d.ransac.num_hypotheses, 5,
+                                   torch.Generator(device=dev).manual_seed(SEED + 51))
+            images_last = {d: frames[d][last] for d in range(2)}
+            s_ref = session.ColocSession(cfg_d, np.stack([K, K]), np.zeros((2, 3), np.float32))
+            s_ref.mapdb, s_ref.map_ready = p1.session.mapdb, True
+            cov_src = torch.zeros(6, 6, device=dev)
+            cov_src[3:6, 3:6] = torch.tensor(b0["cov3"], dtype=torch.float32, device=dev)
+            s_ref.last_pose = {
+                0: PoseWithCov(pose=Pose(R=torch.as_tensor(b0["R"], dtype=torch.float32,
+                                                           device=dev),
+                                         C=torch.as_tensor(b0["C"], dtype=torch.float32,
+                                                           device=dev)),
+                               cov=cov_src, rmse=torch.zeros((), device=dev),
+                               n_tracks=torch.zeros((), dtype=torch.int32, device=dev),
+                               success=torch.ones((), dtype=torch.bool, device=dev)),
+                1: p1.session.last_pose[0]}
+            mesh.inter_pose_device = recording_core
+            try:
+                fused = over_wire(draws)
+                host = s_ref.inter_pose(0, 1, images_last, feats={0: f_src, 1: f_dst},
+                                        sample_idx=draws)
+            finally:
+                mesh.inter_pose_device = real_core
+            check(fused is not None and host is not None and len(outs) == 2,
+                  "4n peers: the injected fusion failed")
+            check(all(torch.equal(a, b) for a, b in zip(fused, host)),
+                  "4n peers: inter_fuse over the wire differs from session.inter_pose")
+            out = outs[0]
+            R_gt = torch.from_numpy(traj[1][0][last] @ traj[0][0][last].T).to(dev)
+            dR_gt = rotation_error(torch, out.rel.R, R_gt)
+            check(dR_gt < 1e-2, f"4n peers: relative rotation {dR_gt:.3e} rad from the truth")
+            lp = p1.session.last_pose[0]
+            CA = lp.cov[3:6, 3:6].double().cpu().numpy() + 1e-6 * np.eye(3)
+            CB = b0["cov3"] + out.diag.cov_rel.double().cpu().numpy() + 1e-6 * np.eye(3)
+            a = lp.pose.C.double().cpu().numpy()
+            b = b0["C"] + b0["R"].T @ out.rel.C.double().cpu().numpy()
+            cov64, _, w64 = ici64(np, CA, CB, a, b)
+            tr_rel = abs(float(fused.trace) - np.trace(cov64)) / np.trace(cov64)
+            check(tr_rel <= 1e-5, f"4n peers: ICI trace {tr_rel:.2e} relative to float64")
+
+            ms = {"inter_fuse over the wire": [], "session.inter_pose": []}
+            for _ in range(FUSE_CALLS):
+                ms["inter_fuse over the wire"] += wall_ms(torch, lambda: over_wire(draws), 1)[1]
+                ms["session.inter_pose"] += wall_ms(torch, lambda: s_ref.inter_pose(
+                    0, 1, images_last, feats={0: f_src, 1: f_dst}, sample_idx=draws), 1)[1]
+            node0.close()
+            node1.close()
+            for d in range(2):
+                peers[d][0].close()
+        print(f"[4n peers] injected draws: inter_fuse over the wire equal to "
+              f"session.inter_pose (torch.equal); {int(out.diag.n_inliers)} E inliers, "
+              f"{int(out.diag.n_common)} common landmarks, relative rotation {dR_gt:.3e} rad "
+              f"from the truth; ICI trace {tr_rel:.2e} relative to float64, w* "
+              f"{float(fused.omega):.5f} (float64 {w64:.5f}); a bundle of "
+              f"{int(f_src.valid.numel())} keypoints is {sizes[0]} bytes; "
+              + "; ".join(f"{k} {percentiles(np, v)}" for k, v in ms.items())
+              + f" over {FUSE_CALLS} in turns  ({card})")
+
+        # ---- (d) the three entry points as subprocesses, at full width. They
+        # take the card one after another (processes that share it at once
+        # slow each other's host-paced work: four at once read 26-134 s);
+        # serve starts first and waits for frames while the peers run, and
+        # the CLI starts while serve answers, so two start-ups are hidden.
+        serve_map = root / "serve_map.npz"
+        checkpoint.save_mapdb(str(serve_map), mapdb)
+        # serve reads one camera from its calib.txt (coloc_tpu's layout)
+        disk.write_calib(str(root / "calib1.txt"), (W, H), K[None], np.zeros((1, 3), np.float32))
+        logs = open(root / "stderr.txt", "w")
+        det = ["--maxkp", str(KP), "--fast-threshold", str(FAST_THRESHOLD)]
+        secs = {}
+
+        def finish(tag, proc, t_start):
+            try:
+                rest, _ = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                raise SmokeFailure(f"4n {tag}: did not exit within 300 s")
+            secs[tag] = time.perf_counter() - t_start
+            proc.seen += rest.splitlines()
+            check(proc.returncode == 0, f"4n {tag}: exit {proc.returncode}; "
+                  + "\n".join(proc.seen[-10:]) + "\n"
+                  + (root / "stderr.txt").read_text()[-3000:])
+            return proc.seen
+
+        srv = entry_point(["coloc_tpu_torch.serve", "--map", str(serve_map), "--calib",
+                           str(root / "calib1.txt"), "--streams", str(N_SERVE), "--publish",
+                           "0", "--steps", str(SERVE_STEPS), "--levels", str(LEVELS), *det],
+                          repo, logs)
+        procs.append(srv)
+
+        data = root / "data"
+        t0 = time.perf_counter()
+        synthetic.write_dataset(str(data), scene, 2, len(frames[0]))
+        disk.write_calib(str(data / "calib.txt"), (W, H), np.stack([K, K]),
+                         np.zeros((2, 3), np.float32))
+        print(f"[4n entry] write_dataset: 2 x {len(frames[0])} frames of {H}x{W} in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # the pair fuses at frames 1 and 3 (--inter-every 2); the broker's
+        # owner steps one frame more, and should the joiner outlive the bus
+        # all the same, a publish redials it for 1 s, not 10
+        t0 = time.perf_counter()
+        peer_args = ["--map", str(map_path), "--calib", str(data / "calib.txt"), "--folder",
+                     str(data), "--inter-every", "2", "--levels", str(LEVELS), *det]
+        peer0 = entry_point(["coloc_tpu_torch.distributed", "--drone", "0", "--peers", "1",
+                             "--broker", "0", "--frames", str(PEER_FRAMES + 1), *peer_args],
+                            repo, logs)
+        procs.append(peer0)
+        port = read_line(peer0, "broker listening on", "distributed 0").split()[-1]
+        t_port = time.perf_counter() - t0
+        peer1 = entry_point(["coloc_tpu_torch.distributed", "--drone", "1", "--peers", "0",
+                             "--broker", f"127.0.0.1:{port}", "--frames", str(PEER_FRAMES),
+                             "--reconnect-timeout", "1", *peer_args], repo, logs)
+        procs.append(peer1)
+        lines = {"distributed 1": finish("distributed 1", peer1, t0),
+                 "distributed 0": finish("distributed 0", peer0, t0)}
+        for d in range(2):
+            tail = [ln for ln in lines[f"distributed {d}"] if ln.startswith(f"drone {d} on")]
+            check(bool(tail) and "cuda:0" in tail[0], f"4n distributed {d}: {tail}")
+            n = PEER_FRAMES + 1 - d
+            n_fused = int(tail[0].split(" inter-drone fusions")[0].split()[-1])
+            check(f"localized {n}/{n} frames" in tail[0] and n_fused >= 1,
+                  f"4n distributed {d}: {tail[0]}")
+            print(f"[4n entry] distributed {d}: {tail[0]}; {secs[f'distributed {d}']:.1f} s "
+                  f"from the owner's launch (its broker up after {t_port:.1f} s)  ({card})")
+
+        sport = int(read_line(srv, "broker listening on", "serve").split()[-1])
+        dev_line = read_line(srv, "serving", "serve")
+        check(dev_line.endswith("cuda:0"), f"4n serve: {dev_line}")
+        t_cli = time.perf_counter()
+        cli = entry_point(["coloc_tpu_torch.cli", "--folder", str(data), "--calib",
+                           str(data / "calib.txt"), "--drones", "2", *det, "--publish", "0",
+                           "--out", str(root / "cli")], repo, logs)
+        procs.append(cli)
+        # the robot publishes rounds of N_SERVE frames until the server has
+        # made its SERVE_STEPS dispatches and exits (a round's frames may
+        # straddle two polls, so a dispatch may serve part of one)
+        t0 = time.perf_counter()
+        received, deadline = [], time.monotonic() + 240.0
+        with transport.Node(sport) as robot:
+            for i in range(N_SERVE):
+                robot.subscribe(transport.pose_topic(i), depth=4)
+            time.sleep(0.2)
+            try:
+                while srv.poll() is None and time.monotonic() < deadline:
+                    for i in range(N_SERVE):
+                        robot.publish(transport.image_topic(i), payloads[i])
+                    for i in range(N_SERVE):
+                        p = robot.receive(transport.pose_topic(i),
+                                          timeout=2.0 if received else 120.0)
+                        if p is not None:
+                            received.append(transport.decode_pose(p))
+            except OSError:
+                pass      # the server closed its broker on exit
+        lines["serve"] = finish("serve", srv, t0)
+        check(len(received) >= SERVE_STEPS and all(m["success"] for m in received),
+              f"4n serve: {len(received)} poses received from the server, success "
+              f"{[m['success'] for m in received]}")
+        check(f"served {SERVE_STEPS} dispatches" in lines["serve"],
+              f"4n serve: {lines['serve'][-3:]}")
+        print(f"[4n entry] serve: {dev_line}; {lines['serve'][-1]}; {len(received)} poses "
+              f"received by the robot, every one a success; {secs['serve']:.1f} s from the "
+              f"first frame to its exit  ({card})")
+
+        lines["cli"] = finish("cli", cli, t_cli)
+        summary = [ln for ln in lines["cli"] if ln.startswith("processed")]
+        check("session on cuda:0" in lines["cli"], f"4n cli: {lines['cli'][:6]}")
+        check(bool(summary), f"4n cli: no summary line; {lines['cli'][-5:]}")
+        n_done = int(summary[0].split()[1])
+        check(n_done == 2 * (len(frames[0]) - 1)
+              and f"{n_done}/{n_done} localized" in summary[0]
+              and (root / "cli" / "poses.txt").is_file(), f"4n cli: {summary[0]}")
+        loader = [ln for ln in lines["cli"] if ln.startswith("frames:")]
+        print(f"[4n entry] cli over the {W}x{H} folder, 2 drones, {KP} keypoints, FAST "
+              f"{FAST_THRESHOLD}: {loader[0] if loader else ''}; {summary[0]}; "
+              f"{secs['cli']:.1f} s  ({card})")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[time] 4n took {time.perf_counter() - t_4n:.1f} s")
 
 
 def ici64(np, CA, CB, a, b):
@@ -3507,6 +3979,16 @@ def main(argv=None) -> int:
     finally:
         ransac_rank.epi_rank = real_epi
     check(len(epi_calls) == 1, f"4d's init_map ranked {len(epi_calls)} times")
+    # 4d's bootstrapped map, shared by 4n's peers
+    import os
+    import tempfile
+
+    from coloc_tpu_torch import checkpoint
+
+    fd, name = tempfile.mkstemp(prefix="coloc-4d-map-", suffix=".npz")
+    os.close(fd)
+    map_4d = Path(name)
+    checkpoint.save_mapdb(str(map_4d), sess.mapdb)
     ops_4d = [t.contiguous() for t in epi_calls[0][:4]]
     rk = ransac_rank._epi_rank_cuda(*ops_4d, 2, 5)
     rp = ransac_rank.epi_rank_plain(*ops_4d)
@@ -3721,7 +4203,14 @@ def main(argv=None) -> int:
 
     lap("4m")
     # ---- phase 4m: batched serving (ServingEngine) at bench.py's sizes
-    phase_4m(torch, np, dev, card, cfg, opts, K, scene, counts)
+    serve_w = phase_4m(torch, np, dev, card, cfg, opts, K, scene, counts)
+
+    lap("4n")
+    # ---- phase 4n: the runtime over the topic bus: ServeRunner, two
+    # DronePeers, the three entry points as subprocesses
+    phase_4n(torch, np, dev, card, cfg, opts, K, scene, serve_w, cfg_d, map_4d, frames, traj,
+             counts)
+    map_4d.unlink(missing_ok=True)
 
     lap("5")
     # ---- phase 5: each path went through its kernels -------------------

@@ -10,7 +10,8 @@ Idiom: plain functions on tensors, NamedTuples of tensors for the data model
 for RANSAC sampling.
 
 Ported so far (match+localize, the TRIP and AKAZE frontends, the session
-with its bootstrap, fusion, map lifecycle and plumbing, batched serving):
+with its bootstrap, fusion, map lifecycle and plumbing, batched serving,
+and the runtime over the topic bus):
   config, types, convert   — options, data model, numpy <-> tensor (a
                              coloc_tpu session's state included)
   ops/dispatch, ops/_build — device dispatch + launch counters, nvcc build
@@ -46,6 +47,13 @@ with its bootstrap, fusion, map lifecycle and plumbing, batched serving):
   io/{loggers,svg,liveviz,disk}
                            — CSV / PLY logs, SVG overlays, the live view,
                              disk frames and calib.txt
+  io/{stream,euroc,kitti}  — live frame queues and time sync, EuRoC and
+                             KITTI readers
+  io/{transport,native_loader}, native/
+                           — the TCP topic bus and its codecs, the
+                             prefetching PNG/PGM loader (C++ built by g++)
+  serve, distributed, cli  — ServeRunner over the bus, DronePeer / run_peer,
+                             the session runner; `python -m` entry points
 """
 
 __version__ = "0.1.0"

@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
+
 
 @dataclasses.dataclass(frozen=True)
 class DetectorOptions:
@@ -97,3 +99,16 @@ class ColocConfig:
     @property
     def image_size(self) -> Tuple[int, int]:
         return (self.detector.height, self.detector.width)
+
+
+def default_intrinsics(config: ColocConfig) -> np.ndarray:
+    """Per-drone K matrices, (num_drones, 3, 3) float32. EuRoC-like defaults."""
+    k = np.array([[458.654, 0.0, 367.215],
+                  [0.0, 457.296, 248.375],
+                  [0.0, 0.0, 1.0]], dtype=np.float32)
+    return np.broadcast_to(k, (config.num_drones, 3, 3)).copy()
+
+
+def default_distortion(config: ColocConfig) -> np.ndarray:
+    """Per-drone radial distortion (k1, k2, k3), (num_drones, 3) float32."""
+    return np.zeros((config.num_drones, 3), dtype=np.float32)

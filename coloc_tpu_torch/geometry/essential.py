@@ -10,7 +10,10 @@ refine_relative_pose is Gauss-Newton over (R in SO(3), t on S^2). Its
 Jacobian comes from torch.func.jacfwd, as coloc_tpu's from jax.jacfwd, and
 its early exit is coloc_tpu's lax.while_loop in done-mask form: a stopped
 loop changes nothing, and the host reads whether it stopped every
-`check_every` steps.
+`check_every` steps. torch.func's forward-mode levels are process-wide,
+so a lock lets one thread at a time take the Jacobian (sessions stepping
+on two threads, as distributed.DronePeers in one process do, would
+otherwise enter and leave each other's levels).
 
 Model F's solvers take pixels: seven_point (OpenMVG's SevenPointSolver,
 RobustMatcher.hpp:134-150; up to 3 candidates a sample) and the
@@ -24,11 +27,14 @@ candidate set of F is the same up to sign and scale, not its order.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Tuple
 
 import torch
 
 from coloc_tpu_torch.geometry import so3
+
+_JACFWD_LOCK = threading.Lock()
 
 
 def _homog(x: torch.Tensor) -> torch.Tensor:
@@ -225,7 +231,8 @@ def refine_relative_pose(R, t, x1, x2, weights, iters: int = 8,
                                      weights)
 
         r = resid(p0)
-        J = torch.func.jacfwd(resid)(p0)                     # (M, 5)
+        with _JACFWD_LOCK:
+            J = torch.func.jacfwd(resid)(p0)                 # (M, 5)
         p = -torch.linalg.solve(J.T @ J + 1e-8 * eye5, J.T @ r)
         R_new = so3.exp(p[:3]) @ R
         t_new = t + B @ p[3:]

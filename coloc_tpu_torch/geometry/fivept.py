@@ -563,3 +563,11 @@ def five_point_batch(x1: torch.Tensor, x2: torch.Tensor
     seeds = torch.cat([roots, roots + delta, roots - delta], dim=0)   # (30, B)
     Es, valid = polish(md, coef, basis, seeds, is_real.repeat(3, 1))
     return Es.reshape(B, _SEEDS, 3, 3), valid
+
+
+def five_point(x1: torch.Tensor, x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One minimal sample, (5, 2) x 2 normalised coords -> ((30, 3, 3) E
+    candidates, (30,) valid): five_point_batch at B = 1 (on a CUDA tensor
+    its three kernels, B6-B8)."""
+    Es, valid = five_point_batch(x1[None], x2[None])
+    return Es[0], valid[0]

@@ -1,8 +1,9 @@
 """SO(3) maps (counterpart of coloc_tpu.geometry.so3): Euler conversions
-in the reference convention, hat and exp.
+in the reference convention, hat, exp and log, the quaternion, and the
+projection onto SO(3).
 
 Batched over leading dimensions: w (..., 3) -> (..., 3, 3), R (..., 3, 3)
--> (..., 3).
+-> (..., 3), or (..., 4) for the quaternion.
 """
 
 from __future__ import annotations
@@ -66,3 +67,51 @@ def exp(w: torch.Tensor) -> torch.Tensor:
     W = hat(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
     return eye + a[..., None, None] * W + b[..., None, None] * (W @ W)
+
+
+def to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """Rotation (..., 3, 3) -> unit quaternion (w, x, y, z) (..., 4),
+    Shepperd's method: all four candidate extractions, the one with the
+    largest pivot kept (stable for every rotation, theta = pi included),
+    sign canonical with w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    # candidate pivots: 1+tr, 1+2*m00-tr, 1+2*m11-tr, 1+2*m22-tr (each 4*q_i^2)
+    pw = 1.0 + tr
+    px = 1.0 + 2.0 * m00 - tr
+    py = 1.0 + 2.0 * m11 - tr
+    pz = 1.0 + 2.0 * m22 - tr
+    cand = torch.stack([
+        torch.stack([pw, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, px, m01 + m10, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m01 + m10, py, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, pz], dim=-1),
+    ], dim=-2)                                              # (..., 4, 4)
+    k = torch.argmax(torch.stack([pw, px, py, pz], dim=-1), dim=-1)
+    q = torch.take_along_dim(cand, k[..., None, None].expand(*k.shape, 1, 4),
+                             dim=-2)[..., 0, :]
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation (..., 3, 3) -> angle-axis (..., 3), through the quaternion
+    (stable near 0 and pi)."""
+    q = to_quaternion(R)
+    w, v = q[..., 0], q[..., 1:]
+    vn = torch.linalg.norm(v, dim=-1)
+    theta = 2.0 * torch.atan2(vn, w)
+    # theta / vn with its limit 2 / w for small vn
+    scale = torch.where(vn > 1e-7, theta / (vn + _EPS), 2.0 / torch.clamp(w, min=_EPS))
+    return scale[..., None] * v
+
+
+def project_to_so3(M: torch.Tensor) -> torch.Tensor:
+    """Nearest rotation (..., 3, 3) to M by SVD (used after linear
+    solvers): U diag(1, 1, sign det(U Vt)) Vt."""
+    U, _, Vt = torch.linalg.svd(M)
+    d = torch.sign(torch.linalg.det(U @ Vt))
+    D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1))
+    return U @ D @ Vt

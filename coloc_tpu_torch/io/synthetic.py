@@ -5,8 +5,9 @@ The scene generator (smooth_texture, make_scene, render, trajectory)
 makes camera frames with known poses: textured planes (a fenestrated near
 plane over a far plane) rendered with exact projective warps. Same rng
 call order and sample positions as coloc_tpu's, so one seed gives the
-same frames in both packages (to float32 rounding). write_dataset (PNG
-sequences on disk) is not ported.
+same frames in both packages (to float32 rounding). write_dataset writes
+them as the reference's PNG sequences, with the standard library's zlib
+(no PIL needed).
 
 Arrays come out in the reference's layout (uint32 descriptors);
 convert.features_from_numpy / mapdb_from_numpy make the port's tensors.
@@ -14,6 +15,9 @@ convert.features_from_numpy / mapdb_from_numpy make the port's tensors.
 
 from __future__ import annotations
 
+import os
+import struct
+import zlib
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
@@ -127,6 +131,43 @@ def trajectory(num_frames: int, drone: int, seed: int = 7):
         Rs.append(so3.exp(torch.from_numpy(w)).numpy())
         Cs.append(C)
     return np.stack(Rs), np.stack(Cs)
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """An 8-bit grayscale PNG of a (H, W) uint8 image: filter byte 0 on
+    every row, one IDAT chunk."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1)
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                 + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                 + _png_chunk(b"IEND", b""))
+
+
+def write_dataset(folder: str, scene: SyntheticScene, num_drones: int,
+                  num_frames: int) -> dict:
+    """Write `img__Quad{id}_{frame:04d}.png` sequences (InterfaceDisk
+    parity) of each drone's trajectory, and the ground-truth poses to
+    groundtruth.npz. Returns {'Rs': (D, F, 3, 3), 'Cs': (D, F, 3)}."""
+    os.makedirs(folder, exist_ok=True)
+    gt_R = np.zeros((num_drones, num_frames, 3, 3), np.float32)
+    gt_C = np.zeros((num_drones, num_frames, 3), np.float32)
+    for d in range(num_drones):
+        Rs, Cs = trajectory(num_frames, d)
+        for f in range(num_frames):
+            img = render(scene, Rs[f], Cs[f])
+            write_png(os.path.join(folder, f"img__Quad{d}_{f:04d}.png"), img.astype(np.uint8))
+            gt_R[d, f] = Rs[f]
+            gt_C[d, f] = Cs[f]
+    np.savez(os.path.join(folder, "groundtruth.npz"), Rs=gt_R, Cs=gt_C)
+    return {"Rs": gt_R, "Cs": gt_C}
 
 
 class FeaturesArrays(NamedTuple):

@@ -4,10 +4,11 @@ Every `coloc_tpu_torch/csrc/*.cu` is compiled by nvcc for sm_90a into ONE
 shared library with a plain C interface, loaded with ctypes: one nvcc per
 source, all started together, then one link, so a build takes about as
 long as its slowest source. The library is built on first use into
-`coloc_tpu_torch/_build/` (git-ignored), named by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads the cached
-file. Nothing here includes PyTorch's headers: a build takes seconds, not
-the minutes of a torch extension, and needs no ninja.
+`coloc_tpu_torch/_build/`, named by a hash of the sources and flags,
+through `_libcache` (temporary name, then rename), so an edited source
+rebuilds and an unchanged one loads the cached file. Nothing here includes
+PyTorch's headers: a build takes seconds, not the minutes of a torch
+extension, and needs no ninja.
 
 A failed build raises with nvcc's output. There is no fallback.
 
@@ -19,18 +20,17 @@ the plain PyTorch twins, which never fuse a multiply into an add.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+from coloc_tpu_torch import _libcache
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = _libcache.BUILD_DIR
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *_ARCH, "-std=c++17", "-O3", "-fmad=false",
@@ -59,7 +59,7 @@ _SIGNATURES = {
     "coloc_k2nn_group": [_P] * 5 + [_I] * 3 + [_I, _P],
 }
 
-_lib: Optional[ctypes.CDLL] = None
+_libs = _libcache.Libraries("CUDA")
 build_seconds: float = 0.0   # 0.0 when the library came from the cache
 build_log: str = ""          # nvcc/ptxas output of the last build
 
@@ -82,22 +82,19 @@ def _sources():
 
 
 def library_path(nvcc: str) -> Path:
-    h = hashlib.sha256()
+    parts = []
     for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    h.update(nvcc.encode())
-    return BUILD_DIR / f"libcoloc_kernels-{h.hexdigest()[:16]}.so"
+        parts += [src.name.encode(), src.read_bytes()]
+    parts += [" ".join(NVCC_FLAGS).encode(), nvcc.encode()]
+    return _libcache.hashed_path("libcoloc_kernels", parts)
 
 
-def _compile(nvcc: str, out: Path) -> None:
+def _compile(nvcc: str, tmp: Path) -> None:
     """Compile every source in its own nvcc process, all at once (output to
-    a log file each, so no pipe fills), wait for all, then link."""
+    a log file each, so no pipe fills), wait for all, then link into
+    `tmp`."""
     global build_seconds, build_log
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    work = Path(tempfile.mkdtemp(prefix="obj-", dir=BUILD_DIR))
+    work = Path(tempfile.mkdtemp(prefix="obj-", dir=tmp.parent))
     t0 = time.perf_counter()
     jobs = []
     try:
@@ -122,9 +119,7 @@ def _compile(nvcc: str, out: Path) -> None:
         build_seconds = time.perf_counter() - t0
         build_log = "".join(logs)
         if failed:
-            tmp.unlink(missing_ok=True)
             raise RuntimeError("\n".join(failed) + "\n" + build_log)
-        os.replace(tmp, out)
     finally:
         for job in jobs:    # none is left running, even on an interrupt
             if job[3].poll() is None:
@@ -133,23 +128,24 @@ def _compile(nvcc: str, out: Path) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _make() -> ctypes.CDLL:
+    nvcc = _nvcc()
+    path = library_path(nvcc)
+    _libcache.build_once(path, lambda tmp: _compile(nvcc, tmp))
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.coloc_error_string.argtypes = [ctypes.c_int]
+    lib.coloc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
-    """The kernels' library, built first if its sources changed."""
-    global _lib
-    if _lib is None:
-        nvcc = _nvcc()
-        path = library_path(nvcc)
-        if not path.is_file():
-            _compile(nvcc, path)
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.coloc_error_string.argtypes = [ctypes.c_int]
-        lib.coloc_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    """The kernels' library, built first if its sources changed; raises with
+    nvcc's output where it cannot be built."""
+    return _libs.get("kernels", _make)
 
 
 def launch(name: str, *args) -> None:

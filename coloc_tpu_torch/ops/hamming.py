@@ -248,6 +248,13 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     return x & 0x3F
 
 
+def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact popcount Hamming distance between packed descriptor rows,
+    int32 (..., W) -> (...,) int32: the test oracle, plain PyTorch on any
+    device (no kernel)."""
+    return _popcount32(torch.bitwise_xor(a, b)).sum(dim=-1).to(torch.int32)
+
+
 def hamming_2nn_twostage(q_desc: torch.Tensor, q_valid: torch.Tensor,
                          bank: TwoStageBank
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -3,7 +3,8 @@ parallel.mesh (inter_pose_device, InterDiag, InterPoseOut).
 
 Reference parity: interPoseEstimator (coloc.hpp:274-392). coloc_tpu runs
 this one masked device function both from session.inter_pose (a host event)
-and inside its sharded ring exchange; here session.inter_pose calls it.
+and inside its sharded ring exchange; here session.inter_pose and
+distributed.DronePeer.inter_fuse call it.
 The rest of coloc_tpu's mesh module (collaborative_step(_scan),
 sharded_inter_step, sharded_map_match, shard_inputs) is the multi-device
 slice, not ported yet (ROADMAP A11).
