@@ -147,6 +147,17 @@ matcher against a 262144-row bank. Phases:
                 `python -m coloc_tpu_torch.{serve,distributed,cli}` as
                 subprocesses on the card (serve fed by a robot node, two
                 peers over a write_dataset folder, the synthetic CLI run)
+  4o mesh     — the multi-device forms (parallel/mesh): ranks spawned by
+                parallel.mesh.spawn, NCCL at world size 1 and gloo worlds
+                of 2 and 4 ranks sharing cuda:0; collaborative_step "full"
+                and "ici" over O_FRAMES of 4d's frames on 4d's map and the
+                scan over O_SCAN, every rank's outputs equal to the
+                single-process composition, inside 4i's gates; sharded
+                serving at B = O_SERVE (4m's renders) equal per shard to
+                ServingEngine; sharded_map_match on 4g's bank over 2 ranks
+                and a 2 x 2 mesh equal to one hamming_2nn; each rank's
+                launches, p50s, spawn and init seconds and staged
+                exchanges; `python -m coloc_tpu_torch.graft_entry` (4 ranks)
   5. counters — every kernel of each path launched during its phase
 
 Any failed check raises and the script exits non-zero. The last two lines
@@ -198,6 +209,9 @@ SERVE_GATE = (1e-3, 1e-2)
 # dispatches, and the timed fusions over the wire
 N_SERVE, SERVE_ROUNDS, SERVE_STEPS, FUSE_CALLS = 8, 10, 3, 5
 PEER_FRAMES = 4       # 4n(d): the joining peer's frames; the broker's owner steps one more
+# 4o: 4d's frames through the mesh's step, the scan's frames, sharded
+# serving's streams, and the timed calls of the scan, serving and the match
+O_FRAMES, O_SCAN, O_SERVE, O_CALLS = 5, 4, 8, 5
 # host threads that render the synthetic sessions' frames
 RENDER_THREADS = 4
 WARMUP, ITERS = 10, 100
@@ -260,6 +274,10 @@ PATH_KERNELS = {
     "4m serving": FRAME_KERNELS,
     "4n serve runner": FRAME_KERNELS,
     "4n peers": FRAME_KERNELS + BOOTSTRAP_KERNELS,
+    "4o step": FRAME_KERNELS + BOOTSTRAP_KERNELS,
+    "4o scan": FRAME_KERNELS + BOOTSTRAP_KERNELS,
+    "4o serving": FRAME_KERNELS,
+    "4o match": ("k2nn",),
 }
 # the phase whose launches the kernels line reports
 LAUNCH_PHASE = {**{name: "4b frame" for name in FRAME_KERNELS},
@@ -1979,6 +1997,28 @@ def ici64(np, CA, CB, a, b):
     return Cf, Cf @ (CAi - w * M) @ a + Cf @ (CBi - (1.0 - w) * M) @ b, float(w)
 
 
+def fusion_gates(np, tag, out, CA, CB, a, b, pos, trace, omega):
+    """4i's gates on one interPoseEstimator output `out` whose ICI fused
+    (CA, a) with (CB, b) into `pos`, `trace` and `omega`: at least 2
+    common landmarks, a finite positive scale, and the ICI against float64
+    (ici64). The trace is flat near its minimum to below float32
+    resolution (ROADMAP C15): tight on the trace, loose on w* and the
+    position. -> the readings."""
+    n_common, scale = int(out.diag.n_common), float(out.scale)
+    check(n_common >= 2 and np.isfinite(scale) and scale > 0,
+          f"{tag}: {n_common} common landmarks, scale {scale}")
+    cov64, pos64, w64 = ici64(np, CA, CB, a, b)
+    tr_rel = abs(trace - np.trace(cov64)) / np.trace(cov64)
+    gap = float(np.linalg.norm(a - b))
+    d_pos = float(np.abs(pos - pos64).max())
+    d_w = abs(omega - w64)
+    check(tr_rel <= 1e-5 and d_w <= 1e-2 and d_pos <= 1e-2 * gap,
+          f"{tag}: ICI against float64: trace {tr_rel:.2e} relative, w* {d_w:.2e}, "
+          f"position {d_pos:.2e} (|a - b| {gap:.3e})")
+    return dict(n_common=n_common, scale=scale, w64=w64, tr_rel=tr_rel, d_w=d_w, gap=gap,
+                d_pos=d_pos)
+
+
 def phase_4i(torch, np, dev, card, cfg_d, Ks2, dists2, sess, frames, traj, frames_h,
              traj_h, counts):
     """Inter-drone fusion (interPoseEstimator) on the card: inter_pose_round
@@ -2038,33 +2078,22 @@ def phase_4i(torch, np, dev, card, cfg_d, Ks2, dists2, sess, frames, traj, frame
               f"{b['bound_ms']:.5f} ms ({b['bound_by']})")
         check(set(res) == {1} and len(outs) == 1, f"4i: the round fused {sorted(res)}")
         out = outs[0]
-        n_common, scale = int(out.diag.n_common), float(out.scale)
         check(bool(out.ok) and res[1] is not None, "4i: the fusion round failed")
-        check(n_common >= 2 and np.isfinite(scale) and scale > 0,
-              f"4i: {n_common} common landmarks, scale {scale}")
         R_gt = torch.from_numpy(traj[1][0][last] @ traj[0][0][last].T).to(dev)
         dR_gt = rotation_error(torch, out.rel.R, R_gt)
         check(dR_gt < 1e-2, f"4i: relative rotation {dR_gt:.3e} rad from the ground truth")
         cov = res[1].cov.double().cpu().numpy()
         check(np.isfinite(cov).all() and np.allclose(cov, cov.T, atol=1e-7)
               and np.linalg.eigvalsh(cov).min() > 0, "4i: the fused covariance is not SPD")
-        CA, CB, a, b = fusion_inputs(sess, out)
-        cov64, pos64, w64 = ici64(np, CA, CB, a, b)
-        tr_rel = abs(float(res[1].trace) - np.trace(cov64)) / np.trace(cov64)
-        gap = float(np.linalg.norm(a - b))
-        d_pos = float(np.abs(res[1].pos.double().cpu().numpy() - pos64).max())
-        d_w = abs(float(res[1].omega) - w64)
+        g = fusion_gates(np, "4i", out, *fusion_inputs(sess, out),
+                         res[1].pos.double().cpu().numpy(), float(res[1].trace),
+                         float(res[1].omega))
         print(f"[4i round] inter_pose_round on frame {last}: ok, {int(out.diag.n_inliers)} E "
-              f"inliers, {n_common} common landmarks, scale {scale:.5f}, relative rotation "
-              f"{dR_gt:.3e} rad from the ground truth, refine rmse {float(out.diag.rmse):.4f} "
-              f"px; ICI w* {float(res[1].omega):.5f} (float64 {w64:.5f}), trace "
-              f"{float(res[1].trace):.6e} ({tr_rel:.2e} relative to float64), position "
-              f"{d_pos:.3e} from float64 (|a - b| {gap:.4f})")
-        # the trace is flat near its minimum to below float32 resolution
-        # (ROADMAP C15): tight on the trace, loose on w* and the position
-        check(tr_rel <= 1e-5 and d_w <= 1e-2 and d_pos <= 1e-2 * gap,
-              f"4i: ICI against float64: trace {tr_rel:.2e} relative, w* {d_w:.2e}, "
-              f"position {d_pos:.2e} (|a - b| {gap:.3e})")
+              f"inliers, {g['n_common']} common landmarks, scale {g['scale']:.5f}, relative "
+              f"rotation {dR_gt:.3e} rad from the ground truth, refine rmse "
+              f"{float(out.diag.rmse):.4f} px; ICI w* {float(res[1].omega):.5f} (float64 "
+              f"{g['w64']:.5f}), trace {float(res[1].trace):.6e} ({g['tr_rel']:.2e} relative "
+              f"to float64), position {g['d_pos']:.3e} from float64 (|a - b| {g['gap']:.4f})")
         print(f"[4i round] launches a round: {launches}  ({card})")
 
         # the same pair with injected draws: card against the plain CPU path
@@ -2623,6 +2652,387 @@ def sync_check(torch, cfg_x, sess, images, tag, mode="warn"):
     print(f"[4h sync {tag}] one eager step, draws injected, LM exit on the device: "
           f"{len(found)} synchronising operation sites{': ' + ', '.join(found) if found else ''}")
     return found
+
+
+def rank_4o(rank, tmp, world, cfgs, devices):
+    """One rank of phase 4o (parallel.mesh.spawn imports this module in a
+    fresh process, without JAX): join the mesh on cuda:0, run the world's
+    programs on 4o's inputs (`tmp`/inputs.npz) and save each program's
+    outputs, per-call milliseconds, kernel launches and host-staged
+    exchanges to `tmp`/<world><rank>.pt. `world`: "one" (NCCL, one rank:
+    the step "full" and "ici" on drone 0's first frame with the rank's
+    generator), "pair" (gloo, two ranks on one card: the step "full" and
+    "ici" over O_FRAMES frames and the scan over O_SCAN with injected
+    draws, sharded serving, the 1-D sharded match), "grid" (gloo, a 2 x 2
+    drone x map mesh: the 2-D sharded match)."""
+    t_start = time.time()
+    import numpy as np
+    import torch
+
+    from coloc_tpu_torch import matching, serving
+    from coloc_tpu_torch.frontend import detect_and_describe_batch
+    from coloc_tpu_torch.fusion import kalman
+    from coloc_tpu_torch.geometry.camera import Camera
+    from coloc_tpu_torch.ops import dispatch
+    from coloc_tpu_torch.parallel import mesh
+    from coloc_tpu_torch.types import MapDB
+
+    t_imported = time.time()
+    if world == "grid":
+        m = mesh.make_mesh(devices, axis_names=("drone", "map"), shape=(2, 2))
+    else:
+        m = mesh.make_mesh(devices)
+    check(m.device == torch.device("cuda", 0), f"4o rank {rank} on {m.device}, not cuda:0")
+    torch.cuda.synchronize()
+    dev = m.device
+    inp = {k: torch.from_numpy(v).to(dev) for k, v in np.load(Path(tmp) / "inputs.npz").items()}
+    res = {"t_start": t_start, "t_imported": t_imported, "t_mesh": time.time(),
+           "backend": m.backend, "device": str(dev)}
+
+    def program(name, fn, calls):
+        """fn(i) for i < calls, each call timed on the host clock up to a
+        synchronise: the outputs, ms, launches and host-staged exchanges."""
+        dispatch.reset_launch_counts()
+        mesh.reset_staging_counts()
+        outs, ms = [], []
+        for i in range(calls):
+            t0 = time.perf_counter()
+            outs.append(fn(i))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res[name] = dict(out=outs, ms=ms, launches=dispatch.launch_counts(),
+                         staging=mesh.staging_counts())
+
+    d = m.coords[mesh.DRONE_AXIS]
+    if world != "grid":
+        cfg = cfgs["step"]
+        _, Ks, dists, fb, mapdb = mesh.shard_inputs(
+            m, inp["frames"][0], inp["Ks"], inp["dists"], kalman.init(2, cfg.filter, dev),
+            MapDB(inp["map_X"], inp["map_desc"], inp["map_valid"]))
+
+        def stepper(mode, injected):
+            """Frame f of the step, the filter bank carried from frame to
+            frame; the draws injected, or the rank's generator."""
+            step, bank = mesh.collaborative_step(m, cfg, inter=mode), [fb]
+
+            def frame(f):
+                kw = (dict(sample_idx=inp["loc"][f, d], inter_sample_idx=inp["inter"][f, d])
+                      if injected else dict(generator=mesh.rank_generator(m, SEED)))
+                out = step(inp["frames"][f, d:d + 1], Ks, dists, bank[0], mapdb, **kw)
+                bank[0] = out[0]
+                return out
+            return frame
+
+        if world == "one":
+            program("full", stepper("full", False), 1)
+            program("ici", stepper("ici", False), 1)
+        else:
+            program("full", stepper("full", True), O_FRAMES)
+            program("ici", stepper("ici", True), O_FRAMES)
+            scan = mesh.collaborative_step_scan(m, cfg)
+            program("scan", lambda i: scan(
+                inp["frames"][:O_SCAN, d:d + 1], Ks, dists, fb, mapdb,
+                sample_idx=inp["loc"][:O_SCAN, d], inter_sample_idx=inp["inter"][O_SCAN - 1, d]),
+                O_CALLS)
+            # sharded serving: the batched frontend on this rank's streams'
+            # frames alone, then its streams against its own copy of the map
+            smap = MapDB(inp["serve_X"], inp["serve_desc"], inp["serve_valid"])
+            bank = matching.pack_map_bank(smap)
+            run = serving.make_sharded_serve_step(m, cfgs["serve"])
+            lo, hi, _ = mesh.shard_rows(O_SERVE, m, mesh.DRONE_AXIS)
+            cams = Camera(K=inp["serve_K"][lo:hi], dist=inp["serve_dist"][lo:hi])
+            program("serving", lambda i: run(
+                detect_and_describe_batch(inp["serve_frames"][lo:hi], cfgs["serve"].detector),
+                cams, smap, bank, sample_idx=inp["serve_draws"][lo:hi]), O_CALLS)
+    if world != "one":
+        match = (mesh.sharded_map_match(m, cfgs["matcher"], axis="map", query_axis="drone")
+                 if world == "grid" else mesh.sharded_map_match(m, cfgs["matcher"]))
+        program("match", lambda i: match(inp["q_desc"], inp["q_valid"], inp["t_desc"],
+                                         inp["t_valid"]), O_CALLS)
+    to_cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t
+    torch.save(torch.utils._pytree.tree_map(to_cpu, res), Path(tmp) / f"{world}{rank}.pt")
+
+
+def phase_4o(torch, np, dev, card, cfg_d, Ks2, dists2, map_path, frames, traj, serve_w,
+             mapdb_g, q_desc_g, counts):
+    """The multi-device forms on the card (parallel/mesh, sharded serving,
+    graft_entry): ranks spawned by parallel.mesh.spawn after the kernels
+    were built here (phase 2). (a) NCCL at world size 1 on cuda:0 (the
+    identity ring) and gloo worlds of 2 and 4 ranks sharing cuda:0, every
+    exchange staged through the host; (b) collaborative_step "full" and
+    "ici" over O_FRAMES of 4d's frames on 4d's saved bootstrap map, with
+    injected draws, every rank's outputs torch.equal to the single-process
+    composition here (detect, match_with_map, localize_image,
+    kalman.update; inter_pose_device or ICI with the ring predecessor),
+    inside 4i's fusion gates; the world of one with its generator against
+    the composition with the same generator; (c) the scan over O_SCAN
+    frames equal to (b) frame by frame; (d) sharded serving at B = O_SERVE
+    of 4m's renders, each rank's frontend on its own frames, equal per shard to
+    ServingEngine.localize_features with the same draws and within 4m's
+    gate; (e) sharded_map_match on 4g's bank over 2 ranks and a 2 x 2 mesh
+    equal to one hamming_2nn and _accept; (f) `python -m
+    coloc_tpu_torch.graft_entry` (4 ranks) exits 0. Spawn and init
+    seconds, each program's p50 on each rank, the staged exchanges' ms and
+    bytes."""
+    import os
+    import shutil
+    import tempfile
+
+    from coloc_tpu_torch import checkpoint, config, matching, serving
+    from coloc_tpu_torch.frontend import detect_and_describe, detect_and_describe_batch
+    from coloc_tpu_torch.fusion import covint, kalman
+    from coloc_tpu_torch.geometry.camera import Camera
+    from coloc_tpu_torch.ops import hamming
+    from coloc_tpu_torch.parallel import mesh
+    from coloc_tpu_torch.ransac import sample_indices
+    from coloc_tpu_torch.sfm.localize import localize_image
+    from coloc_tpu_torch.types import Features, Pose
+
+    t_4o = time.perf_counter()
+    mapdb = checkpoint.load_mapdb(str(map_path), dev)
+    imgs = torch.from_numpy(np.stack([[frames[d][f] for d in range(2)]
+                                      for f in range(1, O_FRAMES + 1)])).to(dev)
+    Ks = torch.from_numpy(Ks2).to(dev)
+    dists = torch.from_numpy(dists2).to(dev)
+    cams = [Camera(K=Ks[d], dist=dists[d]) for d in range(2)]
+
+    # the draws every path below is handed: P3P samples from each drone's
+    # map-match correspondences, five-point ones from the ring pair's matches
+    feats = [[detect_and_describe(imgs[f, d], cfg_d.detector) for d in range(2)]
+             for f in range(O_FRAMES)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    corr = torch.stack([torch.stack([
+        matching.match_with_map(fe, mapdb, cfg_d.matcher).mask & fe.valid for fe in row])
+        for row in feats])
+    pair = torch.stack([torch.stack([
+        matching.match_pair(row[(d - 1) % 2], row[d], cfg_d.matcher).mask for d in range(2)])
+        for row in feats])
+    nb = cfg_d.ransac.num_hypotheses
+    loc, inter = sample_indices(corr, nb, 3, gen), sample_indices(pair, nb, 5, gen)
+
+    def compose(mode, n, gens=None, drones=2):
+        """The step by hand, frame by frame: per drone the frame's features
+        -> match_with_map -> localize_image -> kalman.update, then each drone
+        with its ring predecessor. -> per frame, per drone, the step's
+        outputs (bank row, position, covariance, fused position and
+        covariance, ok) and the inter-drone core's output ("full")."""
+        bank, frames_out = kalman.init(2, cfg_d.filter, dev), []
+        for f in range(n):
+            per = []
+            for d in range(drones):
+                fe = feats[f][d]
+                mm = matching.match_with_map(fe, mapdb, cfg_d.matcher)
+                kw = dict(generator=gens[d]) if gens else dict(sample_idx=loc[f, d])
+                pwc, _ = localize_image(fe, mm, mapdb, cams[d], cfg_d.ransac, cfg_d.refiner, **kw)
+                bank, filt, _, _ = kalman.update(bank, d, kalman.fill_measurement(pwc.pose),
+                                                 pwc.cov[3:6, 3:6], pwc.rmse, pwc.success,
+                                                 cfg_d.filter)
+                per.append((filt, pwc, fe))
+            rows = []
+            for d in range(drones):
+                src = (d - 1) % drones
+                (filt, pwc, fe), (filt_s, pwc_s, fe_s) = per[d], per[src]
+                eye = 1e-5 * torch.eye(3, device=dev)
+                cov, cov_s = pwc.cov[3:6, 3:6] + eye, pwc_s.cov[3:6, 3:6] + eye
+                core = core_in = None
+                if mode == "full":
+                    kw = dict(generator=gens[d]) if gens else dict(sample_idx=inter[f, d])
+                    core = mesh.inter_pose_device(
+                        fe, fe_s, cams[src], cams[d], torch.stack([Ks[src], Ks[d]]),
+                        torch.stack([dists[src], dists[d]]), Pose(R=filt_s.R, C=filt_s.C),
+                        cov_s, filt.C, cov, mapdb, cfg_d, **kw)
+                    fused = (core.fused_pos, core.fused_cov, core.ok)
+                    # the two estimates the ICI fused, as 4i's fusion_inputs
+                    e6 = 1e-6 * torch.eye(3, device=dev)
+                    core_in = [t.detach().double().cpu().numpy() for t in (
+                        cov + e6, cov_s + core.diag.cov_rel + e6, filt.C,
+                        filt_s.C + filt_s.R.T @ core.rel.C)]
+                else:
+                    ici = covint.fuse(cov, cov_s, filt.C, filt_s.C)
+                    fused = (ici.pos, ici.cov, pwc.success)
+                rows.append(dict(step=[t[d:d + 1] for t in bank]
+                                 + [t[None] for t in (filt.C, cov, *fused)],
+                                 core=core, core_in=core_in, success=bool(pwc.success)))
+            frames_out.append(rows)
+        return frames_out
+
+    def equal(got, want, what):
+        check(len(got) == len(want) and all(torch.equal(g, w.cpu()) for g, w in zip(got, want)),
+              f"4o {what}: differs from the composition")
+
+    def rank_ms(res, name):
+        return "; ".join(f"rank {r} {percentiles(np, res[r][name]['ms'])}"
+                         for r in range(len(res)))
+
+    # the map-match case: 4g's bank and planted queries
+    opts = config.MatcherOptions()
+    q_valid = torch.ones(q_desc_g.shape[0], dtype=torch.bool, device=dev)
+    want_m = matching._accept(*hamming.hamming_2nn(
+        q_desc_g, mapdb_g.desc, q_valid, mapdb_g.valid), q_valid, opts, opts.margin_threshold)
+    # sharded serving: O_SERVE of 4m's renders against 4m's map, a camera a
+    # stream; each shard's features from the batched frontend on its frames
+    # alone, as its rank computes them
+    smap, simages, R_gt, C_gt = serve_w
+    scfg = dataclasses.replace(config.ColocConfig(), detector=cfg_d.detector)
+    eng = serving.ServingEngine(smap, Camera(K=Ks[0], dist=dists[0]), scfg, device=dev)
+    b = O_SERVE // 2
+    shard_feats = [detect_and_describe_batch(simages[d * b:(d + 1) * b], cfg_d.detector)
+                   for d in range(2)]
+    sfeats = Features(*(torch.cat(ts) for ts in zip(*shard_feats)))
+    smm = eng.localize_features(sfeats, generator=torch.Generator(device=dev).manual_seed(
+        SEED + 61))[2]
+    sdraws = sample_indices(smm.mask & sfeats.valid, nb, 3,
+                            torch.Generator(device=dev).manual_seed(SEED + 62))
+
+    tmp = Path(tempfile.mkdtemp(prefix="coloc-4o-"))
+    arrays = dict(frames=imgs, Ks=Ks, dists=dists, map_X=mapdb.X, map_desc=mapdb.desc,
+                  map_valid=mapdb.valid, loc=loc, inter=inter, q_desc=q_desc_g,
+                  q_valid=q_valid, t_desc=mapdb_g.desc, t_valid=mapdb_g.valid,
+                  serve_frames=simages[:O_SERVE], serve_X=smap.X, serve_desc=smap.desc,
+                  serve_valid=smap.valid, serve_K=Ks[:1].expand(O_SERVE, 3, 3).contiguous(),
+                  serve_dist=dists[:1].expand(O_SERVE, 3).contiguous(), serve_draws=sdraws)
+    np.savez(tmp / "inputs.npz", **{k: v.cpu().numpy() for k, v in arrays.items()})
+    cfgs = dict(step=cfg_d, serve=scfg, matcher=opts)
+    results = {}
+    try:
+        for world, n, devices in (("one", 1, None), ("pair", 2, "cuda:0"), ("grid", 4, "cuda:0")):
+            t0 = time.time()
+            mesh.spawn(rank_4o, n, (str(tmp), world, cfgs, devices))
+            res = [torch.load(tmp / f"{world}{r}.pt", weights_only=False) for r in range(n)]
+            results[world] = res
+            print(f"[4o {world}] {n} rank(s) on {res[0]['device']} over {res[0]['backend']}: "
+                  f"{time.time() - t0:.1f} s in all; from spawn to the rank's first line "
+                  + ", ".join(f"{r['t_start'] - t0:.1f}" for r in res) + " s, imports "
+                  + ", ".join(f"{r['t_imported'] - r['t_start']:.1f}" for r in res)
+                  + " s, make_mesh " + ", ".join(f"{r['t_mesh'] - r['t_imported']:.2f}"
+                                                 for r in res) + f" s  ({card})")
+            check(all(r["device"] == "cuda:0" for r in res), f"4o {world}: a rank off cuda:0")
+            check(res[0]["backend"] == ("nccl" if n == 1 else "gloo"),
+                  f"4o {world}: backend {res[0]['backend']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (a) + (b) the world of one (NCCL): its generator against the composition's
+    gens = lambda: [torch.Generator(device=dev).manual_seed(SEED * 2 ** 16)]
+    one = results["one"][0]
+    for mode in ("full", "ici"):
+        want = compose(mode, 1, gens(), drones=1)[0][0]["step"]
+        equal(torch.utils._pytree.tree_leaves(one[mode]["out"][0]), want, f"one {mode}")
+    print(f"[4o one] {one['backend']}, world size 1: the step (\"full\": the drone fused with "
+          f"itself; \"ici\") equal to the composition with the same generator; launches "
+          f"{one['full']['launches']}")
+
+    # (b) the pair: the step frame by frame, "full" and "ici", against the composition
+    pair_res = results["pair"]
+    full = compose("full", O_FRAMES)
+    ici = compose("ici", O_FRAMES)
+    n_ok, worst = 0, {}
+    for f in range(O_FRAMES):
+        for d in range(2):
+            equal(torch.utils._pytree.tree_leaves(pair_res[d]["full"]["out"][f]),
+                  full[f][d]["step"], f"full frame {f} drone {d}")
+            equal(torch.utils._pytree.tree_leaves(pair_res[d]["ici"]["out"][f]),
+                  ici[f][d]["step"], f"ici frame {f} drone {d}")
+            check(full[f][d]["success"], f"4o frame {f} drone {d}: localization failed")
+            core = full[f][d]["core"]
+            if bool(core.ok):
+                # 4i's gates on the fusion the ranks' outputs equal
+                n_ok += 1
+                src = (d - 1) % 2
+                R_rel = torch.from_numpy(traj[d][0][f + 1] @ traj[src][0][f + 1].T).to(dev)
+                dR = rotation_error(torch, core.rel.R, R_rel)
+                cov = core.fused_cov.double().cpu().numpy()
+                check(dR < 1e-2 and np.allclose(cov, cov.T, atol=1e-7)
+                      and np.linalg.eigvalsh(cov).min() > 0,
+                      f"4o frame {f} drone {d}: relative rotation {dR:.2e} rad from the "
+                      f"truth, or the fused covariance not SPD")
+                g = fusion_gates(np, f"4o frame {f} drone {d}", core, *full[f][d]["core_in"],
+                                 core.fused_pos.double().cpu().numpy(),
+                                 float(core.diag.trace), float(core.diag.omega))
+                worst = {k: max(worst.get(k, 0.0), g[k]) for k in ("tr_rel", "d_w")}
+                worst["d_pos/gap"] = max(worst.get("d_pos/gap", 0.0), g["d_pos"] / g["gap"])
+                worst["n_common"] = min(worst.get("n_common", 1 << 30), g["n_common"])
+    check(n_ok >= 1, "4o: no drone fused on any frame")
+    st = pair_res[0]["full"]["staging"]
+    print(f"[4o step] 2 ranks on {pair_res[0]['device']} over {pair_res[0]['backend']}, "
+          f"{O_FRAMES} frames of 4d: \"full\" and "
+          f"\"ici\" every output equal to the composition (torch.equal); {n_ok} of "
+          f"{2 * O_FRAMES} fusions ok, each within 1e-2 rad of the true relative rotation, "
+          f"fused covariances SPD, and in 4i's gates (fewest common landmarks "
+          f"{worst['n_common']}, scale finite and > 0; ICI against float64 at worst: trace "
+          f"{worst['tr_rel']:.2e} relative, w* {worst['d_w']:.2e}, position "
+          f"{worst['d_pos/gap']:.2e} of |a - b|); a frame, full: {rank_ms(pair_res, 'full')}; ici: "
+          f"{rank_ms(pair_res, 'ici')}  ({card})")
+    print(f"[4o exchange] rank 0's ring_shift of a frame bundle staged through the host: "
+          f"{st['exchanges']} exchanges, {st['bytes'] // max(st['exchanges'], 1)} bytes each, "
+          f"{st['seconds'] * 1e3 / max(st['exchanges'], 1):.3f} ms each (copies and the "
+          f"collective)  ({card})")
+    counts["4o step"] = {k: sum(r["full"]["launches"][k] for r in pair_res)
+                         for k in pair_res[0]["full"]["launches"]}
+
+    # (c) the scan against the step frame by frame
+    for d in range(2):
+        out = torch.utils._pytree.tree_leaves(pair_res[d]["scan"]["out"][0])
+        last = full[O_SCAN - 1][d]["step"]
+        equal(out[:3], [t for t in last[:3]], f"scan drone {d} filter bank")
+        for f in range(O_SCAN):
+            equal([out[3][f], out[4][f]], full[f][d]["step"][3:5], f"scan frame {f} drone {d}")
+        check(bool(out[5].all()), f"4o scan drone {d}: a frame failed")
+        equal(out[6:], last[5:], f"scan drone {d} exchange")
+    counts["4o scan"] = {k: sum(r["scan"]["launches"][k] for r in pair_res) // O_CALLS
+                         for k in pair_res[0]["scan"]["launches"]}
+    print(f"[4o scan] {O_SCAN} frames then one exchange, equal to the step frame by frame: "
+          f"{rank_ms(pair_res, 'scan')} a call  ({card})")
+
+    # (d) sharded serving against the engine on each shard, same draws
+    for d in range(2):
+        rows = slice(d * b, (d + 1) * b)
+        want = eng.localize_features(shard_feats[d], sample_idx=sdraws[rows])
+        equal(torch.utils._pytree.tree_leaves(pair_res[d]["serving"]["out"][0]),
+              torch.utils._pytree.tree_leaves(want), f"serving shard {d}")
+        pwc = pair_res[d]["serving"]["out"][0][0]
+        for i in range(b):
+            rot = rotation_error(torch, pwc.pose.R[i].to(dev), R_gt[d * b + i])
+            c_err = float(torch.linalg.norm(pwc.pose.C[i].to(dev) - C_gt[d * b + i]))
+            check(bool(pwc.success[i]) and rot < SERVE_GATE[0] and c_err < SERVE_GATE[1],
+                  f"4o serving stream {d * b + i}: rotation {rot:.2e} rad, centre {c_err:.2e} m")
+    counts["4o serving"] = {k: sum(r["serving"]["launches"][k] for r in pair_res) // O_CALLS
+                            for k in pair_res[0]["serving"]["launches"]}
+    print(f"[4o serving] B={O_SERVE} over 2 ranks, the batched frontend on the rank's "
+          f"{b} frames and the step in each: "
+          f"each shard equal to ServingEngine.localize_features with the same draws, every "
+          f"stream within {SERVE_GATE[0]} rad and {SERVE_GATE[1]} m; "
+          f"{rank_ms(pair_res, 'serving')} a dispatch  ({card})")
+
+    # (e) the sharded match against one hamming_2nn + _accept
+    for r in range(2):
+        equal(list(pair_res[r]["match"]["out"][0]), list(want_m), f"1-D match rank {r}")
+    grid = results["grid"]
+    Q, qs = q_desc_g.shape[0], -(-q_desc_g.shape[0] // 2)
+    for r in range(4):
+        rows = slice((r // 2) * qs, min((r // 2 + 1) * qs, Q))
+        equal(list(grid[r]["match"]["out"][0]), [t[rows] for t in want_m], f"2x2 match rank {r}")
+    counts["4o match"] = {k: sum(r["match"]["launches"][k] for r in pair_res + grid) // O_CALLS
+                          for k in grid[0]["match"]["launches"]}
+    print(f"[4o match] Q={Q} x T={mapdb_g.desc.shape[0]}: over 2 ranks and a 2 x 2 drone x map "
+          f"mesh equal to one hamming_2nn + _accept; 1-D {rank_ms(pair_res, 'match')}; "
+          f"2 x 2 {rank_ms(grid, 'match')}; all_gather staged "
+          f"{grid[0]['match']['staging']['bytes'] // O_CALLS} bytes a call on rank 0  ({card})")
+
+    # (f) the port's graft entry: entry() and the 4-rank dry run
+    repo = Path(__file__).resolve().parent
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "coloc_tpu_torch.graft_entry"], cwd=str(repo),
+                          env=dict(os.environ, PYTHONPATH=str(repo)), capture_output=True,
+                          text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("dryrun", "entry"))]
+    check(proc.returncode == 0, f"4o graft_entry exited {proc.returncode}:\n"
+          + proc.stdout[-2000:] + proc.stderr[-3000:])
+    check(all(f"dryrun[{p}] ok" in proc.stdout for p in ("step", "scan", "serving", "map2d"))
+          and "entry() ok on cuda:0" in proc.stdout, f"4o graft_entry: {lines}")
+    print(f"[4o graft_entry] python -m coloc_tpu_torch.graft_entry exited 0 in "
+          f"{time.time() - t0:.1f} s: {' | '.join(lines)}")
+    print(f"[time] 4o took {time.perf_counter() - t_4o:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -4210,6 +4620,12 @@ def main(argv=None) -> int:
     # DronePeers, the three entry points as subprocesses
     phase_4n(torch, np, dev, card, cfg, opts, K, scene, serve_w, cfg_d, map_4d, frames, traj,
              counts)
+
+    lap("4o")
+    # ---- phase 4o: the multi-device forms: ranks of parallel.mesh on the
+    # card, the step, the scan, sharded serving and the sharded match
+    phase_4o(torch, np, dev, card, cfg_d, Ks2, dists2, map_4d, frames, traj, serve_w, mapdb_g,
+             q_desc_g, counts)
     map_4d.unlink(missing_ok=True)
 
     lap("5")

@@ -233,7 +233,10 @@ def refine_relative_pose(R, t, x1, x2, weights, iters: int = 8,
         r = resid(p0)
         with _JACFWD_LOCK:
             J = torch.func.jacfwd(resid)(p0)                 # (M, 5)
-        p = -torch.linalg.solve(J.T @ J + 1e-8 * eye5, J.T @ r)
+        # solve_ex: singular normal equations (degenerate inliers) give a
+        # non-finite step that the cost test rejects, as jnp.linalg.solve's
+        # does in coloc_tpu, where linalg.solve raises (on the card)
+        p = -torch.linalg.solve_ex(J.T @ J + 1e-8 * eye5, J.T @ r).result
         R_new = so3.exp(p[:3]) @ R
         t_new = t + B @ p[3:]
         t_new = t_new / (torch.linalg.norm(t_new) + 1e-12)

@@ -21,6 +21,9 @@ Two entry layers:
 - `ServingEngine` — holds the map and its packed bank (packed once,
   repacked by `set_map`) and serves `localize_features` /
   `localize_frames`.
+- `make_sharded_serve_step(mesh, config)` — the step over a mesh of
+  ranks (parallel/mesh): each rank is handed only its own B / n streams
+  and serves them against its own copy of the map, with no collective.
 
 Where coloc_tpu takes a JAX key, the port takes a torch.Generator that
 draws the RANSAC samples, or the uniforms to draw them with (B, 256, 3),
@@ -28,13 +31,11 @@ or injected samples `sample_idx` (B, 256, 3) (how the parity tests replay
 coloc_tpu's draws). A Camera with K (3, 3) is shared by every stream; one
 with K (B, 3, 3) and dist (B, 3) gives each stream its own.
 
-The multi-device form (coloc_tpu's make_sharded_serve_step) is the
-multi-device slice's (ROADMAP A11).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 
@@ -45,6 +46,9 @@ from coloc_tpu_torch.geometry.camera import Camera
 from coloc_tpu_torch.ops import dispatch, hamming
 from coloc_tpu_torch.sfm import localize
 from coloc_tpu_torch.types import Features, MapDB, Matches, PoseWithCov
+
+if TYPE_CHECKING:
+    from coloc_tpu_torch.parallel.mesh import Mesh
 
 # the pose LM's exit is read on the host every LM_CHECK_EVERY iterations,
 # as in the eager session step
@@ -90,6 +94,40 @@ def make_serve_step(config: ColocConfig, cam: Camera):
         return pwc, inl, mm
 
     return step
+
+
+def make_sharded_serve_step(mesh: Mesh, config: ColocConfig):
+    """Scale-out serving: B streams split over the mesh's ranks, b = B / n
+    each, every rank holding the map and its bank. Serving is
+    embarrassingly parallel, so there is no collective; and each rank is
+    handed only its own streams, so it runs the frontend on its own b
+    frames and n cards serve n x b streams at the one-card batched rate.
+
+    Returns run(feats_b (b, K, ...), cams (K (b, 3, 3), dist (b, 3)),
+    mapdb, bank, generator=None, sample_idx=None (b, 256, 3))
+      -> (PoseWithCov (b, ...), inliers (b, K), Matches (b, K)) of this
+         rank's streams, on the rank's device.
+
+    coloc_tpu's run takes the global batch and shard_map hands each device
+    its rows; here the rank at i on the mesh's first axis holds rows
+    parallel.mesh.shard_rows(B, mesh, mesh.axis_names[0])[:2] of a global
+    batch, and nothing is computed for another rank's. Cameras are per
+    stream (broadcast a shared one); `bank` is
+    matching.pack_map_bank(mapdb), packed once per rank. coloc_tpu folds
+    its key with the axis index: here each rank's generator
+    (parallel/mesh.rank_generator) or its injected draws."""
+
+    def run(feats_b: Features, cams: Camera, mapdb: MapDB, bank: hamming.Bank,
+            generator: Optional[torch.Generator] = None,
+            sample_idx: Optional[torch.Tensor] = None):
+        if cams.K.dim() != 3 or cams.K.shape[0] != feats_b.valid.shape[0]:
+            raise ValueError("sharded serving takes a camera a stream: K (b, 3, 3)")
+        if feats_b.valid.device != mesh.device:
+            raise ValueError(f"streams on {feats_b.valid.device}, the rank on {mesh.device}")
+        return make_serve_step(config, cams)(feats_b, mapdb, bank, generator=generator,
+                                             sample_idx=sample_idx)
+
+    return run
 
 
 class ServingEngine:

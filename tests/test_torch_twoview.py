@@ -563,3 +563,20 @@ def test_relative_pose_essential_matches_reference():
         if k == 7:
             assert _angle(Rj, Rt) < 2e-3 and _dir_angle(tj, tt) < 5e-3
             assert jacc >= 0.98
+
+
+def test_refine_relative_pose_singular_normal_equations(monkeypatch):
+    """A Jacobian of rank one whose normal equations are singular in
+    float32 (every entry 1e3: the 1e-8 damping is below their rounding):
+    the Gauss-Newton step is non-finite and rejected, and R, t come back
+    as they went in, as jnp.linalg.solve's step is in coloc_tpu; the port
+    raised here on the card before (torch.linalg.solve checks for
+    singularity)."""
+    M = 40
+    monkeypatch.setattr(torch.func, "jacfwd", lambda f: (lambda p: torch.full((M, 5), 1e3)))
+    rng = np.random.default_rng(0)
+    x1 = torch.from_numpy(rng.normal(size=(M, 2)).astype(np.float32))
+    x2 = x1 + 0.01
+    R, t = torch.eye(3), torch.tensor([1.0, 0.0, 0.0])
+    R2, t2 = tess.refine_relative_pose(R, t, x1, x2, torch.ones(M))
+    assert torch.equal(R2, R) and torch.equal(t2, t)
