@@ -3,8 +3,17 @@
 Reference parity: the reference wraps every stage in std::chrono spans and
 prints them (coloc.hpp:113-144, GPUDetector.hpp:162-165,
 GPUMatcher.hpp:204-223). StageProfiler gives the same per-stage wall-time
-lines and keeps them for a summary; each stage is also a
-torch.profiler.record_function, so it shows as a span in a trace.
+lines and keeps them for a summary; each stage is also a `span`, so it
+shows in a trace.
+
+`span(name)` marks a stretch of host code for torch.profiler. With no
+profiler running it costs one check of the profiler's state (no
+synchronise, no CUDA event, no host read); under the profiler it is a
+host op (`cpu_op`) on the same clock as the device's events. It is not a
+`record_function`: kineto mirrors those onto the device's timeline as
+`gpu_user_annotation` events, which a trace reader would count as
+device work. The session and serving paths open spans named
+`coloc.<layer>.<part>` at their layer boundaries.
 
     prof = StageProfiler(enabled=True, device=torch.device("cuda", 0))
     with prof.stage("detect"):
@@ -13,6 +22,9 @@ torch.profiler.record_function, so it shows as a span in a trace.
 
     with trace_to("traces"):                     # a Chrome trace in traces/
         session.run(frames)
+
+    with span("coloc.serve.frontend"):           # one span in the trace
+        feats = detect_and_describe_batch(images, opts)
 
 A stage that wraps a CUDA graph's replay times the replay; a stage never
 sits inside a capture (synchronising there would break it).
@@ -27,6 +39,16 @@ from collections import defaultdict
 from typing import Dict, Iterator, List, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+
+
+def span(name: str):
+    """A context manager that records `name` over its block as a host op
+    when torch.profiler is on, and does nothing else. The profiler's state
+    is read at the block's start and end in the calling thread: a span
+    that this thread opened before starting a profiler must not close
+    under it (torch raises), so start profilers between spans."""
+    return _RecordFunctionFast(name)
 
 
 def _synchronize(device: Optional[torch.device]) -> None:
@@ -56,7 +78,7 @@ class StageProfiler:
             yield
             return
         t0 = time.perf_counter()
-        with torch.profiler.record_function(name):
+        with span(name):
             yield
             if self.sync:
                 _synchronize(self.device)
@@ -64,12 +86,6 @@ class StageProfiler:
         self.times[name].append(dt)
         if self.printer:
             self.printer(f"[{name}] {dt * 1e3:.2f} ms")
-
-    def block_on(self, value):
-        """Synchronise with the device of `value` (a tensor) inside a stage."""
-        if isinstance(value, torch.Tensor):
-            _synchronize(value.device)
-        return value
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         out = {}

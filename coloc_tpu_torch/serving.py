@@ -44,6 +44,7 @@ from coloc_tpu_torch.config import ColocConfig
 from coloc_tpu_torch.frontend import detect_and_describe_batch
 from coloc_tpu_torch.geometry.camera import Camera
 from coloc_tpu_torch.ops import dispatch, hamming
+from coloc_tpu_torch.profiling import span
 from coloc_tpu_torch.sfm import localize
 from coloc_tpu_torch.types import Features, MapDB, Matches, PoseWithCov
 
@@ -161,10 +162,13 @@ class ServingEngine:
                           uniforms: Optional[torch.Tensor] = None
                           ) -> Tuple[PoseWithCov, torch.Tensor, Matches]:
         """Match and localize B streams' extracted features, Features with
-        (B, K, ...) leaves."""
-        feats_b = Features(*(t.to(self.device) for t in feats_b))
-        return self._step(feats_b, self.mapdb, self.bank, generator=generator,
-                          sample_idx=sample_idx, uniforms=uniforms)
+        (B, K, ...) leaves. Spans: `coloc.serve.request` over the call,
+        holding `coloc.serve.localize`."""
+        with span("coloc.serve.request"):
+            feats_b = Features(*(t.to(self.device) for t in feats_b))
+            with span("coloc.serve.localize"):
+                return self._step(feats_b, self.mapdb, self.bank, generator=generator,
+                                  sample_idx=sample_idx, uniforms=uniforms)
 
     def localize_frames(self, images: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
@@ -173,8 +177,12 @@ class ServingEngine:
                         ) -> Tuple[PoseWithCov, torch.Tensor, Matches]:
         """B raw frames (B, H, W) through the batched frontend (one launch a
         stage for every stream, frontend.detect_and_describe_batch), then
-        match and localize."""
-        images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
-        feats_b = detect_and_describe_batch(images, self.config.detector)
-        return self._step(feats_b, self.mapdb, self.bank, generator=generator,
-                          sample_idx=sample_idx, uniforms=uniforms)
+        match and localize. Spans: `coloc.serve.request` over the call,
+        holding `coloc.serve.frontend` and `coloc.serve.localize`."""
+        with span("coloc.serve.request"):
+            images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+            with span("coloc.serve.frontend"):
+                feats_b = detect_and_describe_batch(images, self.config.detector)
+            with span("coloc.serve.localize"):
+                return self._step(feats_b, self.mapdb, self.bank, generator=generator,
+                                  sample_idx=sample_idx, uniforms=uniforms)

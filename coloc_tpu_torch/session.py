@@ -86,7 +86,7 @@ from coloc_tpu_torch.geometry.camera import Camera
 from coloc_tpu_torch.io import loggers, svg
 from coloc_tpu_torch.ops import dispatch, hamming
 from coloc_tpu_torch.parallel import mesh
-from coloc_tpu_torch.profiling import StageProfiler
+from coloc_tpu_torch.profiling import StageProfiler, span
 from coloc_tpu_torch.sfm import ba, localize, reconstruct
 from coloc_tpu_torch.types import (Features, MapDB, Matches, Pose, PoseWithCov,
                                    TwoViewGeometry)
@@ -320,22 +320,28 @@ class _StepGraphs:
     def replay(self, images, draws) -> _ChunkOut:
         """One frame: images (D, H, W) and its draws -> the frame's
         outputs, copied out of the static buffers."""
-        self.images.copy_(images)
-        self.draws.copy_(draws)
-        head, middle, tail = self.graphs
-        head.replay()
-        dispatch.count_replay(self.records[0])
-        its = self.lm_steps
-        while its < self.cfg.refiner.max_iterations:
-            self.host_reads += 1
-            if not bool(self.lm.active.any()):
-                break
-            middle.replay()
-            dispatch.count_replay(self.records[1])
-            its += self.lm_steps
-        tail.replay()
-        dispatch.count_replay(self.records[2])
-        return _ChunkOut(*(t.clone() for t in self.out))
+        with span("coloc.session.step"):
+            self.images.copy_(images)
+            self.draws.copy_(draws)
+            head, middle, tail = self.graphs
+            with span("coloc.session.replay.head"):
+                head.replay()
+            dispatch.count_replay(self.records[0])
+            its = self.lm_steps
+            while its < self.cfg.refiner.max_iterations:
+                self.host_reads += 1
+                with span("coloc.lm.exit_read"):
+                    active = bool(self.lm.active.any())
+                if not active:
+                    break
+                with span("coloc.session.replay.middle"):
+                    middle.replay()
+                dispatch.count_replay(self.records[1])
+                its += self.lm_steps
+            with span("coloc.session.replay.tail"):
+                tail.replay()
+            dispatch.count_replay(self.records[2])
+            return _ChunkOut(*(t.clone() for t in self.out))
 
     def node_count(self) -> Optional[int]:
         """Nodes of the head and tail graphs (a frame replays each once),
@@ -779,55 +785,66 @@ class ColocSession:
         graph (a capture that fails raises); on the CPU it runs eagerly
         frame by frame. `sample_idx` (F, D, 256, 3): injected P3P draws.
         The log rows are queued, as intra_pose_all's, and the live view
-        gets every frame."""
+        gets every frame. Spans (profiling.span): `coloc.session.chunk`
+        over the call, holding `.inputs`, a `.step` a frame and
+        `.outputs`."""
+        with span("coloc.session.chunk"):
+            return self._intra_pose_chunk(images, sample_idx)
+
+    def _intra_pose_chunk(self, images, sample_idx: Optional[torch.Tensor]) -> Dict[int, list]:
         cfg = self.config
         D = cfg.num_drones
-        imgs = self._image(images)
-        F = imgs.shape[0]
-        self._ensure_support()
+        captures = self._captures()
+        with span("coloc.session.inputs"):
+            imgs = self._image(images)
+            F = imgs.shape[0]
+            self._ensure_support()
+            if captures:
+                # captured (or found) before the stage: a stage never sits
+                # inside a capture
+                g = self._step_graphs(sample_idx is not None)
+                draws = (sample_idx.to(device=self.device, dtype=torch.int64)
+                         if sample_idx is not None
+                         else torch.stack([self._draw(D) for _ in range(F)]))
+                g.load(self)
         frame0 = self.frame
-        if not self._captures():    # the plain path: eager, frame by frame
+        if not captures:    # the plain path: eager, frame by frame
             outs = []
             with self.profiler.stage("intra_chunk"):
                 for f in range(F):
-                    self.frame = frame0 + f
-                    pwcs, fb, filtered, dist_g, rej, eulers, sup_inc = intra_all_device_step(
-                        cfg, imgs[f], self.mapdb, self._map_bank(), self.Ks, self.dists,
-                        self.filter_bank,
-                        sample_idx=None if sample_idx is None else sample_idx[f],
-                        uniforms=None if sample_idx is not None else self._draw(D))
-                    self._finish_frame(pwcs, fb, filtered, rej, sup_inc)
-                    outs.append(_chunk_out(pwcs, filtered, rej, dist_g, eulers, fb.P))
-            res = _ChunkOut(*(torch.stack(v) for v in zip(*outs)))
+                    with span("coloc.session.step"):
+                        self.frame = frame0 + f
+                        pwcs, fb, filtered, dist_g, rej, eulers, sup_inc = intra_all_device_step(
+                            cfg, imgs[f], self.mapdb, self._map_bank(), self.Ks, self.dists,
+                            self.filter_bank,
+                            sample_idx=None if sample_idx is None else sample_idx[f],
+                            uniforms=None if sample_idx is not None else self._draw(D))
+                        self._finish_frame(pwcs, fb, filtered, rej, sup_inc)
+                        outs.append(_chunk_out(pwcs, filtered, rej, dist_g, eulers, fb.P))
         else:
-            # captured (or found) before the stage: a stage never sits
-            # inside a capture
-            g = self._step_graphs(sample_idx is not None)
-            draws = (sample_idx.to(device=self.device, dtype=torch.int64)
-                     if sample_idx is not None
-                     else torch.stack([self._draw(D) for _ in range(F)]))
-            g.load(self)
             with self.profiler.stage("intra_chunk"):
-                res = _ChunkOut(*(torch.stack(v) for v in zip(*(
-                    g.replay(imgs[f], draws[f]) for f in range(F)))))
-            self.filter_bank = kalman.FilterBank(*(t.clone() for t in g.fb))
-            self.lm_support, self.lm_last_seen = g.sup.clone(), g.last.clone()
-            self.last_rejected = res.rejected[-1]
-        if self._logging():
-            self._pending_logs.extend(
-                (frame0 + f, _ChunkOut(*(t[f] for t in res))) for f in range(F))
-        for f in range(F):
-            self._publish_poses(frame0 + f, _ChunkOut(*(t[f] for t in res)))
-        out = {d: [] for d in range(D)}
-        for f in range(F):
+                outs = [g.replay(imgs[f], draws[f]) for f in range(F)]
+        with span("coloc.session.outputs"):
+            res = _ChunkOut(*(torch.stack(v) for v in zip(*outs)))
+            if captures:
+                self.filter_bank = kalman.FilterBank(*(t.clone() for t in g.fb))
+                self.lm_support, self.lm_last_seen = g.sup.clone(), g.last.clone()
+                self.last_rejected = res.rejected[-1]
+            if self._logging():
+                self._pending_logs.extend(
+                    (frame0 + f, _ChunkOut(*(t[f] for t in res))) for f in range(F))
+            for f in range(F):
+                self._publish_poses(frame0 + f, _ChunkOut(*(t[f] for t in res)))
+            out = {d: [] for d in range(D)}
+            for f in range(F):
+                for d in range(D):
+                    out[d].append(PoseWithCov(
+                        pose=Pose(R=res.R[f, d], C=res.C[f, d]), cov=res.cov[f, d],
+                        rmse=res.rmse[f, d], n_tracks=res.n_tracks[f, d],
+                        success=res.success[f, d]))
             for d in range(D):
-                out[d].append(PoseWithCov(
-                    pose=Pose(R=res.R[f, d], C=res.C[f, d]), cov=res.cov[f, d],
-                    rmse=res.rmse[f, d], n_tracks=res.n_tracks[f, d],
-                    success=res.success[f, d]))
-        for d in range(D):
-            self.last_pose[d] = out[d][-1]
-        self.frame = frame0 + F
+                self.last_pose[d] = out[d][-1]
+            self.frame = frame0 + F
         return out
 
     def inter_pose_round(self, images, policy: str = "auto"

@@ -49,6 +49,7 @@ import torch
 from coloc_tpu_torch.config import RefinerOptions
 from coloc_tpu_torch.geometry import camera as cam_ops
 from coloc_tpu_torch.geometry import so3
+from coloc_tpu_torch.profiling import span
 
 
 class BAProblem(NamedTuple):
@@ -346,14 +347,17 @@ def pose_lm_run(state: PoseLM, X, uv, inliers, K, dist, opts: RefinerOptions,
                 check_every: int) -> PoseLM:
     """The LM loop from pose_lm_init's `state` to its end: `check_every`
     masked iterations at a time, then one host read of whether any lane is
-    still active."""
+    still active (a `coloc.lm.exit_read` span each)."""
     done_its = 0
     while done_its < opts.max_iterations:
         n = min(check_every, opts.max_iterations - done_its)
         state = pose_lm_steps(state, X, uv, inliers, K, dist, opts, n)
         done_its += n
-        if done_its < opts.max_iterations and not bool(state.active.any()):
-            break
+        if done_its < opts.max_iterations:
+            with span("coloc.lm.exit_read"):
+                active = bool(state.active.any())
+            if not active:
+                break
     return state
 
 
