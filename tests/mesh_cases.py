@@ -101,7 +101,6 @@ def leaves(npz, tag: str) -> list:
 
 
 def _mesh(**kw) -> mesh.Mesh:
-    torch.set_num_threads(1)
     return mesh.make_mesh("cpu", **kw)
 
 

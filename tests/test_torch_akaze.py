@@ -29,6 +29,7 @@ from coloc_tpu_torch.io import synthetic as tsyn
 from coloc_tpu_torch.matching import match_with_map, pack_map_bank
 from coloc_tpu_torch.sfm import ba as tba
 from coloc_tpu_torch.sfm.localize import localize_image
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 H, W = 240, 320
 K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)

@@ -14,6 +14,7 @@ import torch
 from coloc_tpu_torch import akaze, frontend
 from coloc_tpu_torch.ops import descriptor, diffusion, mldb, orientation, patches, pyramid
 from coloc_tpu_torch.sfm import ba
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -33,6 +33,7 @@ from coloc_tpu_torch.geometry import se3 as tse3
 from coloc_tpu_torch.session import ColocSession as TSession
 from coloc_tpu_torch.sfm import ba as tba
 from coloc_tpu_torch.sfm import reconstruct as trec
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 H, W, FRAMES = 240, 320, 6
 K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from bootstrap_cases import angle, bootstrap, dir_angle
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 
 @pytest.mark.parametrize("model", ["F", "H"])

@@ -14,6 +14,7 @@ import torch
 from coloc_tpu.io import synthetic as jsyn
 
 from bootstrap_cases import H, K, W, angle, bootstrap
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 @pytest.fixture(scope="module")
 def three():

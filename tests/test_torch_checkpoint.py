@@ -34,6 +34,7 @@ from coloc_tpu_torch.io import synthetic
 from coloc_tpu_torch.session import ColocSession as TSession
 
 from plumbing_cases import frame, session
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 D, L, V = 2, 96, 2
 K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)

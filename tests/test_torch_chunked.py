@@ -33,6 +33,7 @@ from coloc_tpu_torch import checkpoint as tckpt
 from coloc_tpu_torch import config as tcfg
 from coloc_tpu_torch import convert
 from coloc_tpu_torch.session import ColocSession as TSession
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 H, W, FRAMES, D = 240, 320, 6, 2
 K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)

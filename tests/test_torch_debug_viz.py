@@ -32,6 +32,7 @@ from coloc_tpu_torch.profiling import StageProfiler, trace_to
 from coloc_tpu_torch.types import TwoViewGeometry
 
 from plumbing_cases import H, W, cameras, config, frame, scene, session
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 
 def _get(url):

@@ -27,21 +27,11 @@ from coloc_tpu_torch.session import ColocSession
 from coloc_tpu_torch.types import MapDB
 
 import plumbing_cases as pc
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 DET = dict(width=pc.W, height=pc.H, max_keypoints=256, num_levels=3, fast_threshold=10)
 FRAMES = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this file runs: under the suite's parallel
-    workers every torch pool spins on all the cores, which slows these
-    eager CPU sessions ~18x (measured); restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_config(D=2):
@@ -212,9 +202,7 @@ def test_two_process_peers_fuse_each_other(boot, tmp_path):
     data = tmp_path / "data"
     synthetic.write_dataset(str(data), pc.scene(), 2, 3)
     disk.write_calib(str(data / "calib.txt"), (pc.W, pc.H), *pc.cameras(2))
-    # one thread each: the processes' torch pools would oversubscribe the
-    # cores (18 s against 7 s measured with two peers alone)
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
     with transport.Broker() as broker:
         procs = [subprocess.Popen(
             [sys.executable, "-m", "coloc_tpu_torch.distributed", "--drone", str(d),

@@ -16,6 +16,7 @@ from coloc_tpu.ops import patches as jpatch
 
 from coloc_tpu_torch.ops import diffusion as tdiff
 from coloc_tpu_torch.ops import patches as tpatch
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 
 @pytest.mark.parametrize("octave", [0, 3])

@@ -29,6 +29,7 @@ from coloc_tpu_torch.ops import fast as tfast
 from coloc_tpu_torch.ops import orientation as torient
 from coloc_tpu_torch.ops import patches as tpatch
 from coloc_tpu_torch.ops import pyramid as tpyr
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 H, W, LEVELS, KP = 240, 320, 4, 256
 K = np.array([[0.6 * W, 0, W / 2], [0, 0.6 * W, H / 2], [0, 0, 1]], np.float32)

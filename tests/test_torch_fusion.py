@@ -35,6 +35,7 @@ from coloc_tpu_torch import metrics as tmetrics
 from coloc_tpu_torch import utils as tutils
 from coloc_tpu_torch.fusion import covint as tcovint
 from coloc_tpu_torch.types import Matches as TMatches
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 N_PAIRS = 48
 

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from coloc_tpu_torch import graft_entry
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 
 def test_entry_forward_on_cpu():

@@ -17,6 +17,7 @@ from coloc_tpu.ops import hamming as jh
 from coloc_tpu_torch import config as tcfg
 from coloc_tpu_torch import matching as tmatching
 from coloc_tpu_torch.ops import hamming as th
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 
 def _desc(rng, n):

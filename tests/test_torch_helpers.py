@@ -18,17 +18,7 @@ from coloc_tpu.ops import hamming as jhamming
 from coloc_tpu_torch import config as tcfg
 from coloc_tpu_torch.geometry import fivept, so3
 from coloc_tpu_torch.ops import hamming
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this file runs: under the suite's parallel
-    workers every torch pool spins on all the cores, which slows these
-    eager CPU sessions ~18x (measured); restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 
 def _rotations():

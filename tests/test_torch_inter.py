@@ -44,6 +44,7 @@ from coloc_tpu_torch.io import transport
 from coloc_tpu_torch.parallel import mesh as tmesh
 from coloc_tpu_torch.session import ColocSession as TSession
 from coloc_tpu_torch.types import Pose, PoseWithCov
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 NB = 256                       # RansacOptions().num_hypotheses
 

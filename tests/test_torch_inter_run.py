@@ -13,6 +13,7 @@ import torch
 from coloc_tpu_torch import config as tcfg
 from coloc_tpu_torch.io import synthetic as tsyn
 from coloc_tpu_torch.session import ColocSession
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 H, W = 240, 320
 K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)

@@ -25,20 +25,10 @@ from coloc_tpu_torch.io import disk, euroc, kitti, native_loader, stream, synthe
 import plumbing_cases
 from test_euroc import _write_sequence as write_euroc
 from test_kitti import _write_sequence as write_kitti
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 H, W = 96, 128
 K = np.array([[100.0, 0, 64], [0, 101.0, 48], [0, 0, 1]], np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this file runs: under the suite's parallel
-    workers every torch pool spins on all the cores, which slows these
-    eager CPU sessions ~18x (measured); restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

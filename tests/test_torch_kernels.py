@@ -18,6 +18,7 @@ from coloc_tpu_torch.io import synthetic
 from coloc_tpu_torch.ops import diffusion, dispatch, fast, hamming, patches, ransac_rank
 from rank_cases import (THR_SQ, planted_epi_operands, planted_rank_operands,
                         twostage_edge_case)
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

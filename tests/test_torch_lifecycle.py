@@ -25,6 +25,7 @@ from coloc_tpu.types import MapDB as JMapDB
 from coloc_tpu_torch import config as tcfg
 from coloc_tpu_torch import convert
 from coloc_tpu_torch.session import ColocSession as TSession
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 L = 512
 

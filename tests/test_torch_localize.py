@@ -31,6 +31,7 @@ from coloc_tpu_torch.io import synthetic
 from coloc_tpu_torch.matching import match_with_map, pack_map_bank
 from coloc_tpu_torch.sfm import ba as tba
 from coloc_tpu_torch.sfm.localize import localize_image
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 H, W, KP, L = 480, 752, 128, 256
 K = np.array([[0.6 * W, 0, W / 2], [0, 0.6 * W, H / 2], [0, 0, 1]], np.float32)

@@ -35,6 +35,7 @@ from coloc_tpu_torch.parallel import mesh as tmesh
 from coloc_tpu_torch.types import Pose, PoseWithCov
 
 from plumbing_cases import cameras, frame, session, step_outputs
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 D = 2
 FILES = ("poses.txt", "poses_filtered.txt", "mahalanobis.txt")

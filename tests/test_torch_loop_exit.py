@@ -17,6 +17,7 @@ import torch
 from coloc_tpu_torch.config import RefinerOptions
 from coloc_tpu_torch.geometry import essential, so3
 from coloc_tpu_torch.sfm import ba
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)
 OPTS = RefinerOptions()

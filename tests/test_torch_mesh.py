@@ -29,20 +29,13 @@ from coloc_tpu_torch.sfm.localize import localize_image
 from coloc_tpu_torch.types import Pose
 
 import mesh_cases as mc
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 D, F, NB = mc.D, mc.F, mc.NB
 
 
 @pytest.fixture(scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture(scope="module")
-def runs(one_thread, tmp_path_factory):
+def runs(tmp_path_factory):
     """The draws injected into the frame-by-frame step and the scan (from
     this process's matches), the state sharded_inter_step fuses, and what
     the two ranks and the world of one wrote."""

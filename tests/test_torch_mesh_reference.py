@@ -36,6 +36,7 @@ from coloc_tpu_torch.parallel import mesh
 from coloc_tpu_torch.sfm.localize import localize_image
 
 import mesh_cases as mc
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 D, NB = mc.D, mc.NB
 def _jmapdb(ma):

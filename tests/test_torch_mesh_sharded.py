@@ -31,6 +31,7 @@ from coloc_tpu_torch.io import synthetic
 from coloc_tpu_torch.parallel import mesh
 
 import mesh_cases as mc
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 D, NB = mc.D, mc.NB
 # sharded serving: B streams over the 2 ranks (tests/test_torch_serving.py's

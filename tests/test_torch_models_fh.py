@@ -41,6 +41,7 @@ from coloc_tpu_torch.geometry import se3 as tse3
 from coloc_tpu_torch.geometry import triangulation as ttri
 from coloc_tpu_torch.ops import ransac_rank as trr
 from coloc_tpu_torch.types import Pose as TPose
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)
 DIST = np.array([-0.08, 0.02, -0.003], np.float32)

@@ -31,6 +31,7 @@ from coloc_tpu_torch.geometry import camera as tcam
 from coloc_tpu_torch.session import ColocSession as TSession
 from coloc_tpu_torch.sfm import reconstruct as trec
 from coloc_tpu_torch.sfm import tracks as ttracks
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 H, W, D = 240, 320, 4
 K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)

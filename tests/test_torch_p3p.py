@@ -25,6 +25,7 @@ from coloc_tpu.geometry import p3p as jp3p
 from coloc_tpu.geometry import so3 as jso3
 
 from coloc_tpu_torch.geometry import p3p as tp3p
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 B = 256
 

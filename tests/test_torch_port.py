@@ -20,6 +20,7 @@ import coloc_tpu_torch
 import coloc_tpu_torch.config as tcfg
 from coloc_tpu_torch import convert
 from coloc_tpu_torch.io import synthetic as tsynthetic
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 PORT = Path(coloc_tpu_torch.__file__).resolve().parent
 

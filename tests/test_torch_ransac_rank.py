@@ -22,6 +22,7 @@ from coloc_tpu.ops import ransac_rank as jrr
 from coloc_tpu_torch import ransac as transac
 from coloc_tpu_torch.ops import ransac_rank as trr
 from rank_cases import THR_SQ, planted_epi_operands, planted_rank_operands
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 F = 451.2
 

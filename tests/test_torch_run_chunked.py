@@ -9,6 +9,7 @@ import torch
 from coloc_tpu_torch import config as tcfg
 from coloc_tpu_torch import session as tsession
 from coloc_tpu_torch.io import synthetic as tsyn
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 
 def test_run_chunked_matches_run():

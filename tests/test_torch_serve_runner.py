@@ -24,19 +24,9 @@ from coloc_tpu_torch.geometry import so3
 from coloc_tpu_torch.io import disk, transport
 
 import plumbing_cases as pc
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 B = 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this file runs: under the suite's parallel
-    workers every torch pool spins on all the cores, which slows these
-    eager CPU sessions ~18x (measured); restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _frames():

@@ -34,6 +34,7 @@ from coloc_tpu_torch.sfm import localize
 from coloc_tpu_torch.types import Features, Matches
 
 import plumbing_cases
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 H, W, KP, L, B = 240, 320, 256, 512, 3
 K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)

@@ -18,14 +18,7 @@ from coloc_tpu_torch.geometry.camera import Camera
 from coloc_tpu_torch.sfm import ba
 
 import plumbing_cases
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 
 @pytest.fixture

@@ -34,6 +34,7 @@ from coloc_tpu_torch import session as tsession
 from coloc_tpu_torch.fusion import kalman as tkalman
 from coloc_tpu_torch.io import synthetic as tsyn
 from coloc_tpu_torch.matching import pack_map_bank
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 H, W, LEVELS, KP, L, D = 240, 320, 4, 256, 512, 3
 K = np.array([[0.6 * W, 0, W / 2], [0, 0.6 * W, H / 2], [0, 0, 1]], np.float32)

@@ -25,6 +25,7 @@ from coloc_tpu.io import transport as jtransport
 
 from coloc_tpu_torch import convert
 from coloc_tpu_torch.io import _native, stream, synthetic, transport
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

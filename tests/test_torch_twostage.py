@@ -19,6 +19,7 @@ from coloc_tpu_torch import matching as tmatching
 from coloc_tpu_torch import types as ttypes
 from coloc_tpu_torch.ops import hamming as th
 from rank_cases import twostage_edge_case
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 
 def _desc(rng, n):

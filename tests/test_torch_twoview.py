@@ -47,6 +47,7 @@ from coloc_tpu_torch.geometry import triangulation as ttri
 from coloc_tpu_torch.io import synthetic as tsyn
 from coloc_tpu_torch.ops import ransac_rank as trank
 from coloc_tpu_torch.types import Pose
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 B = 37  # not a multiple of the TPU kernels' 128-lane tile
 

@@ -11,6 +11,7 @@ import numpy as np
 
 from coloc_tpu_torch.session import ColocSession
 from update_cases import CFG, DISTS, KS, H, W, recording, frames as scene_frames
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 
 def test_run_auto_update_map_after_dead_frames():

@@ -29,6 +29,7 @@ from coloc_tpu_torch import convert
 from coloc_tpu_torch import matching as tmatching
 from coloc_tpu_torch import utils as tutils
 from coloc_tpu_torch.session import ColocSession as TSession
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 H, W = 240, 320
 K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)

@@ -13,6 +13,7 @@ import torch
 
 from coloc_tpu_torch.session import ColocSession
 from update_cases import CFG, DISTS, KS, recording, frames as scene_frames
+from port_harness import one_torch_thread, time_limit  # noqa: F401
 
 
 def test_run_and_run_chunked_update_the_map_alike():
