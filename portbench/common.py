@@ -1,6 +1,6 @@
 """What the traffic drivers share: the files of a cell, the configuration
-built for the program, seeds derived from the run's seed, and the
-largest of several readings of a number."""
+built for the program, an AKAZE detector group's parameters, seeds derived
+from the run's seed, and the largest of several readings of a number."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 
@@ -43,6 +43,22 @@ def coloc_config(config_mod, cfg: Dict[str, Any], drones: int):
     return config_mod.ColocConfig(num_drones=drones, model=cfg["model"],
                                   max_landmarks=cfg["max_landmarks"], scale=cfg["scale"],
                                   **groups)
+
+
+class AkazeParams(NamedTuple):
+    octaves: int
+    sublevels: int
+    tau_max: float
+    cell_samples: int
+
+
+def akaze_params(det: Dict[str, Any]) -> AkazeParams:
+    """An `akaze` detector group as the program reads it: `num_levels` as
+    octaves (half of it, 2 to 4), `akaze_sublevels`, `akaze_fed_tau_max`
+    and `akaze_cell_samples` over the program's defaults."""
+    n = det["num_levels"]
+    return AkazeParams(min(n // 2, 4) if n >= 4 else 2, det.get("akaze_sublevels", 4),
+                       det.get("akaze_fed_tau_max", 0.25), det.get("akaze_cell_samples", 4))
 
 
 def intrinsics(cfg: Dict[str, Any]):

@@ -138,11 +138,7 @@ class Cell:
 
     def request_bounds(self) -> Dict[str, float]:
         """Each port kernel's least time over one request's launches."""
-        det = self.cfg_json["detector"]
-        return roofline.trip_step(self.B, det["height"], det["width"], det["num_levels"],
-                                  det["scale_factor"], det["max_keypoints"],
-                                  self.cfg_json["max_landmarks"],
-                                  self.cfg.ransac.num_hypotheses)
+        return roofline.step_bounds(self.cfg_json, self.B, self.cfg.ransac.num_hypotheses)
 
     def spans(self) -> Dict[str, List[float]]:
         """The two halves of localize_frames, called one after the other

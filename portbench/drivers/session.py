@@ -135,11 +135,7 @@ class Cell:
         return self.traffic["traced_chunks"]
 
     def request_bounds(self) -> Dict[str, float]:
-        det = self.cfg_json["detector"]
-        step = roofline.trip_step(self.D, det["height"], det["width"], det["num_levels"],
-                                  det["scale_factor"], det["max_keypoints"],
-                                  self.cfg_json["max_landmarks"],
-                                  self.cfg.ransac.num_hypotheses)
+        step = roofline.step_bounds(self.cfg_json, self.D, self.cfg.ransac.num_hypotheses)
         return {k: v * self.F for k, v in step.items()}
 
     def spans(self) -> Dict[str, List[float]]:

@@ -1,8 +1,9 @@
 """The resident map that a cell localizes against, made by the benchmark
-from the seed's scene: the reference frontend's keypoints of the scene's
-reference view (the identity pose), as many as the map has slots, each
-placed at the depth of the plane it lies on. Every slot holds a landmark
-of the scene, one per scene point."""
+from the seed's scene: the reference frontend's keypoints (that of the
+configuration's detector backend, in float32) of the scene's reference
+view (the identity pose), as many as the map has slots, each placed at
+the depth of the plane it lies on. Every slot holds a landmark of the
+scene, one per scene point."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from portbench.inputs import scene as scene_mod
-from portbench.reference import judge, trip
+from portbench.reference import judge, pipeline, trip
 
 
 def build(scene: scene_mod.Scene, det: dict, slots: int, device
@@ -22,7 +23,8 @@ def build(scene: scene_mod.Scene, det: dict, slots: int, device
     invalid."""
     eye = np.eye(3, dtype=np.float32)[None]
     view = scene_mod.render(scene, eye, np.zeros((1, 3), np.float32), device)
-    kp = judge.reference_frontend(view, det, k=slots)
+    with pipeline.precision(False):
+        kp = judge.reference_frontend(view, det, k=slots)
     valid = kp.valid[0]
     xy = kp.xy[0].double().cpu().numpy()
     Z = scene_mod.plane_depth(scene, xy)

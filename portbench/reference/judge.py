@@ -2,7 +2,8 @@
 judged by the plain reference from the stage's own inputs.
 
   features   - the frame's keypoints and descriptors against the
-               reference frontend's on the same frame
+               reference frontend's on the same frame (the one of the
+               configuration's detector backend, FRONTENDS)
   matches    - the map slot of each of the program's descriptors against
                the reference's 2-NN of the same descriptors
   localize   - the inlier set against the reference's AC-RANSAC of the
@@ -25,7 +26,7 @@ from typing import Dict, Optional
 
 import torch
 
-from portbench.reference import geometry, kalman, match, trip
+from portbench.reference import akaze, geometry, kalman, match, trip
 
 PAIR_PX = 0.05          # a program keypoint and a reference keypoint this close are one
 
@@ -107,11 +108,16 @@ def filtered(R, C, z, cov3, rmse, ok, opts: dict, dtype=torch.float64) -> Dict[s
             "filter_gap_m": float(torch.linalg.norm(C.to(dtype) - Cr, dim=-1).max())}
 
 
+# the reference frontend of each detector backend: a module whose
+# frontend(frames, det, k) gives trip.Keypoints (xy at base resolution,
+# descriptor bits zero padded to 512)
+FRONTENDS = {"trip": trip, "akaze": akaze}
+
+
 def reference_frontend(frames, det: dict, k: Optional[int] = None) -> trip.Keypoints:
-    """The reference frontend of the configuration's detector group."""
-    return trip.describe(frames, det["num_levels"], det["scale_factor"],
-                         k or det["max_keypoints"], det["fast_threshold"], det["border"],
-                         det["smoothing_radius"])
+    """The reference frontend of the configuration's detector group, by its
+    backend: the best k (max_keypoints) keypoints of each of (B, H, W)."""
+    return FRONTENDS[det.get("backend", "trip")].frontend(frames, det, k or det["max_keypoints"])
 
 
 def matches_by_position(prog_xy, prog_valid, prog_idx, ref: trip.Keypoints, bank_words,

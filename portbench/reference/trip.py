@@ -234,6 +234,12 @@ def describe(frames: torch.Tensor, levels: int, factor: float, k: int, threshold
                      valid=valid)
 
 
+def frontend(frames: torch.Tensor, det: dict, k: int) -> Keypoints:
+    """The configuration's detector group (`backend` "trip") on (B, H, W)."""
+    return describe(frames, det["num_levels"], det["scale_factor"], k, det["fast_threshold"],
+                    det["border"], det["smoothing_radius"])
+
+
 def words_to_bits(words: torch.Tensor) -> torch.Tensor:
     """(..., 16) int32 words, bit j of word i the descriptor's bit 32 i + j
     -> (..., 512) bool."""

@@ -1,6 +1,6 @@
 """The port's kernels: how each is named in a device trace, and the least
 time an NVIDIA H100 could take for the launches of one frame step, from
-the step's shapes.
+the step's shapes and the configuration's detector backend.
 
 A kernel's bound is the larger of its bytes over the HBM rate (each input
 byte read once, each output byte written once) and its operations over
@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import re
 from typing import Dict, Tuple
+
+from portbench import common
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -83,6 +85,54 @@ def trip_step(frames: int, height: int, width: int, levels: int, factor: float,
             "ransac_rank": ransac_rank(frames, 4 * hypotheses, keypoints),
             "fast_nms": fast_nms(px),
             "extract": extract(px, frames * keypoints)}
+
+
+def fed_octave(frames: int, height: int, width: int, sublevels: int) -> float:
+    """B10: one octave of `frames` images of height x width; the images and
+    their k^2 in, each sublevel's L, Lx, Ly and response out; bytes only."""
+    return bound_s(frames * (height * width * 4 * (1 + 4 * sublevels) + 4), 0.0, FP32_FLOPS)
+
+
+def sample_raster(keypoints: int, channels: int, samples: int) -> float:
+    """B11: one call of `samples` float32 samples a keypoint in each of
+    `channels` channels out, two float32 coordinates a sample and the two
+    window origins a keypoint in; bytes only. The bf16 source elements
+    that the samples read are left out: which they are, and how many
+    distinct, depends on the frame."""
+    return bound_s(keypoints * (samples * (channels + 2) * 4 + 8), 0.0, FP32_FLOPS)
+
+
+def akaze_step(frames: int, height: int, width: int, octaves: int, sublevels: int,
+               keypoints: int, slots: int, hypotheses: int,
+               cell_samples: int) -> Dict[str, float]:
+    """Each AKAZE-path kernel's bound, seconds, over one step of `frames`
+    frames: the scale space (B10, an octave a launch at 2^-o resolution),
+    the orientation's and the descriptor's samples (B11: 2 channels at 49
+    points, 3 at 29 cells of cell_samples^2 points), then as trip_step:
+    B1, B2 and B3 at M = keypoints."""
+    fed, h, w = 0.0, height, width
+    for _ in range(octaves):
+        fed += fed_octave(frames, h, w, sublevels)
+        h, w = (h + 1) // 2, (w + 1) // 2
+    K = frames * keypoints
+    return {"k2nn": k2nn(K, slots),
+            "p3p": p3p(frames * hypotheses),
+            "ransac_rank": ransac_rank(frames, 4 * hypotheses, keypoints),
+            "fed_octave": fed,
+            "sample_raster": sample_raster(K, 2, 49) + sample_raster(K, 3, 29 * cell_samples ** 2)}
+
+
+def step_bounds(cfg: dict, frames: int, hypotheses: int) -> Dict[str, float]:
+    """The bounds of one step of `frames` frames of the configuration (its
+    JSON file), by its detector backend."""
+    det = cfg["detector"]
+    if det.get("backend", "trip") == "akaze":
+        p = common.akaze_params(det)
+        return akaze_step(frames, det["height"], det["width"], p.octaves, p.sublevels,
+                          det["max_keypoints"], cfg["max_landmarks"], hypotheses,
+                          p.cell_samples)
+    return trip_step(frames, det["height"], det["width"], det["num_levels"], det["scale_factor"],
+                     det["max_keypoints"], cfg["max_landmarks"], hypotheses)
 
 
 KERNELS = {

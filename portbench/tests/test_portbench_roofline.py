@@ -30,6 +30,22 @@ def test_step_bounds():
     assert set(b) == {"k2nn", "p3p", "ransac_rank", "fast_nms", "extract"}
 
 
+def test_akaze_kernels():
+    """B10 over a 480x752 frame's 4 octaves of 4 sublevels; B11's two calls
+    at K = 5000 (the samples and their coordinates, not the bf16 source
+    they read); B3 at M = 5000."""
+    fed = sum(roofline.fed_octave(1, h, w, 4) for h, w in ((480, 752), (240, 376), (120, 188),
+                                                           (60, 94)))
+    assert fed * 1e3 == pytest.approx(0.00973, rel=0.01)
+    calls = roofline.sample_raster(5000, 2, 49) + roofline.sample_raster(5000, 3, 464)
+    assert calls * 1e3 == pytest.approx(0.01504, rel=0.01)
+    assert roofline.ransac_rank(1, 1024, 5000) * 1e3 == pytest.approx(0.00336, rel=0.01)
+    step = roofline.akaze_step(1, 480, 752, 4, 4, 5000, 8192, 256, 4)
+    assert step["fed_octave"] == pytest.approx(fed)
+    assert step["sample_raster"] == pytest.approx(calls)
+    assert step["k2nn"] == pytest.approx(roofline.k2nn(5000, 8192))
+
+
 def test_trace_names():
     assert roofline.kernel_of("void k2nn_mma_kernel<4>(int const*, ...)") == "k2nn"
     assert roofline.kernel_of("rank_kernel(float const*)") == "ransac_rank"
