@@ -48,6 +48,7 @@ from coloc_tpu_torch.config import DetectorOptions
 from coloc_tpu_torch.ops import diffusion, mldb
 from coloc_tpu_torch.ops import fast as fast_ops
 from coloc_tpu_torch.ops import patches as patch_ops
+from coloc_tpu_torch.profiling import span
 from coloc_tpu_torch.types import Features
 
 _DETECT_BORDER = 10
@@ -182,7 +183,12 @@ def detect_and_describe_akaze_batch(images: torch.Tensor, opts: DetectorOptions,
                                     mark: Mark = None) -> Features:
     """(B, H, W) grayscale -> Features with a leading batch axis, one launch
     of each kernel a stage for the whole batch. `mark(stage)`, when given,
-    is called after each stage (chip_smoke.py times stages with it)."""
+    is called after each stage (chip_smoke.py times stages with it).
+    Spans (profiling.span), one after another: `coloc.akaze.scale_space`
+    (B10), `.detect` (threshold, NMS, cross-scale suppression, top-k,
+    subpixel), `.sample` (the stacked bf16 source, its shifted copies and
+    the windows B11 reads) and `.describe` (orientation and MLDB, which
+    launch B11). A captured graph's replay runs none of them."""
     mark = mark or _no_mark
     _check_knobs(opts)
     B = images.shape[0]
@@ -190,101 +196,105 @@ def detect_and_describe_akaze_batch(images: torch.Tensor, opts: DetectorOptions,
     dev = images.device
     num_sub = opts.akaze_sublevels
 
-    levels = diffusion.build_scale_space_batch(
-        images, num_octaves=_num_octaves(opts), num_sublevels=num_sub,
-        tau_max=opts.akaze_fed_tau_max)
-    mark("scale_space")
+    with span("coloc.akaze.scale_space"):
+        levels = diffusion.build_scale_space_batch(
+            images, num_octaves=_num_octaves(opts), num_sublevels=num_sub,
+            tau_max=opts.akaze_fed_tau_max)
+        mark("scale_space")
 
-    # detection: per-level threshold + NMS, then cross-scale suppression
-    nms = [fast_ops.nms3(torch.where(ev.response > _RESPONSE_THRESHOLD,
-                                     ev.response, 0.0)) for ev in levels]
-    nms = _cross_scale_suppress(levels, nms)
-    mark("detect")
+    with span("coloc.akaze.detect"):
+        # detection: per-level threshold + NMS, then cross-scale suppression
+        nms = [fast_ops.nms3(torch.where(ev.response > _RESPONSE_THRESHOLD,
+                                         ev.response, 0.0)) for ev in levels]
+        nms = _cross_scale_suppress(levels, nms)
+        mark("detect")
 
-    # one exact top-k per image over the stacked level rasters
-    sp_nms = patch_ops.stack_levels_batch(nms)
-    sp_resp = patch_ops.stack_levels_batch([ev.response for ev in levels])
-    wp, R = sp_nms.wp, sp_nms.img_rows
-    geom = (tuple(int(r) for r in sp_nms.row_base), tuple(int(h) for h in sp_nms.heights),
-            tuple(int(w) for w in sp_nms.widths))
-    mask = _akaze_mask_on(dev, *geom, wp, R, _DETECT_BORDER, B)
-    tables = _level_tables(dev, *geom, tuple((ev.sigma, ev.octave) for ev in levels))
-    top_s, top_i = fast_ops.topk_desc((sp_nms.stacked * mask).reshape(B, R * wp), k)
-    boff = torch.arange(B, device=dev).repeat_interleave(k) * R      # (B*k,)
-    top_s = top_s.reshape(B * k)
-    top_i = top_i.reshape(B * k)
-    valid = top_s > 0
-    row = top_i // wp                  # within-image stacked row
-    col = top_i % wp
-    rb = tables.row_base
-    kp_l = (row[:, None] >= rb[None, 1:]).sum(dim=1)
+        # one exact top-k per image over the stacked level rasters
+        sp_nms = patch_ops.stack_levels_batch(nms)
+        sp_resp = patch_ops.stack_levels_batch([ev.response for ev in levels])
+        wp, R = sp_nms.wp, sp_nms.img_rows
+        geom = (tuple(int(r) for r in sp_nms.row_base), tuple(int(h) for h in sp_nms.heights),
+                tuple(int(w) for w in sp_nms.widths))
+        mask = _akaze_mask_on(dev, *geom, wp, R, _DETECT_BORDER, B)
+        tables = _level_tables(dev, *geom, tuple((ev.sigma, ev.octave) for ev in levels))
+        top_s, top_i = fast_ops.topk_desc((sp_nms.stacked * mask).reshape(B, R * wp), k)
+        boff = torch.arange(B, device=dev).repeat_interleave(k) * R      # (B*k,)
+        top_s = top_s.reshape(B * k)
+        top_i = top_i.reshape(B * k)
+        valid = top_s > 0
+        row = top_i // wp                  # within-image stacked row
+        col = top_i % wp
+        rb = tables.row_base
+        kp_l = (row[:, None] >= rb[None, 1:]).sum(dim=1)
 
-    # subpixel offsets on the stacked raw response, added to LOCAL coords
-    dx, dy = fast_ops.subpixel_offsets(sp_resp.stacked, col, row + boff)
-    kp_x = col.to(torch.float32) + dx
-    kp_y = (row - rb[kp_l]).to(torch.float32) + dy          # level-local y
-    kp_sig = tables.sigma[kp_l]        # sigma in level-local pixels
-    mark("topk")
+        # subpixel offsets on the stacked raw response, added to LOCAL coords
+        dx, dy = fast_ops.subpixel_offsets(sp_resp.stacked, col, row + boff)
+        kp_x = col.to(torch.float32) + dx
+        kp_y = (row - rb[kp_l]).to(torch.float32) + dy          # level-local y
+        kp_sig = tables.sigma[kp_l]        # sigma in level-local pixels
+        mark("topk")
 
-    # the bf16 sampling source: L, Lx, Ly and their 64-lane-shifted copies
-    # (first 64 lanes dropped, zero tail), row-stacked
-    sp_l = patch_ops.stack_levels_batch([ev.L for ev in levels])
-    sp_lx = patch_ops.stack_levels_batch([ev.Lx for ev in levels])
-    sp_ly = patch_ops.stack_levels_batch([ev.Ly for ev in levels])
-    R_tot = sp_l.stacked.shape[0]      # = B * R rows a channel
+    with span("coloc.akaze.sample"):
+        # the bf16 sampling source: L, Lx, Ly and their 64-lane-shifted copies
+        # (first 64 lanes dropped, zero tail), row-stacked
+        sp_l = patch_ops.stack_levels_batch([ev.L for ev in levels])
+        sp_lx = patch_ops.stack_levels_batch([ev.Lx for ev in levels])
+        sp_ly = patch_ops.stack_levels_batch([ev.Ly for ev in levels])
+        R_tot = sp_l.stacked.shape[0]      # = B * R rows a channel
 
-    def shift64(x):
-        return F.pad(x[:, 64:], (0, 64))
+        def shift64(x):
+            return F.pad(x[:, 64:], (0, 64))
 
-    src6 = torch.cat([sp_l.stacked, sp_lx.stacked, sp_ly.stacked,
-                      shift64(sp_l.stacked), shift64(sp_lx.stacked),
-                      shift64(sp_ly.stacked)], dim=0).to(torch.bfloat16)
-    # sp_l's levels have sp_nms's shapes, so the same tables
-    w_l = tables.widths[kp_l].to(torch.float32)
-    h_l = tables.heights[kp_l].to(torch.float32)
-    row0, _ = patch_ops.patch_origins(sp_l, kp_x, kp_y, kp_l)
-    row0_local = row0 - rb[kp_l].to(torch.int32)
-    # narrow-window column selection: leftmost needed column a; the plain
-    # copy iff the 52-px span fits its 128-column tile, else the shifted one
-    xi = torch.round(kp_x).to(torch.int32)
-    a = torch.clamp(xi - 26, min=0)
-    shift = (a % 128) > 75
-    c0 = torch.where(shift, ((a - 64) // 128) * 128, (a // 128) * 128).to(torch.int32)
-    col0_eff = c0 + torch.where(shift, 64, 0).to(torch.int32)   # window col 0, level coords
-    row0_dma = (row0 + boff.to(torch.int32)
-                + torch.where(shift, 3 * R_tot, 0).to(torch.int32))
-    # orientation window: 48 rows of Lx / Ly (base offset + R_tot skips L),
-    # 8-aligned inside the 64-row patch so it covers [y - 17, y + 17]
-    yi_rel = torch.round(kp_y).to(torch.int32) - row0_local
-    ro = torch.clamp(((yi_rel - 17) // 8) * 8, 0, 16).to(torch.int32)
-    row0_ori = row0_dma + R_tot + ro
-    mark("sampling")
+        src6 = torch.cat([sp_l.stacked, sp_lx.stacked, sp_ly.stacked,
+                          shift64(sp_l.stacked), shift64(sp_lx.stacked),
+                          shift64(sp_ly.stacked)], dim=0).to(torch.bfloat16)
+        # sp_l's levels have sp_nms's shapes, so the same tables
+        w_l = tables.widths[kp_l].to(torch.float32)
+        h_l = tables.heights[kp_l].to(torch.float32)
+        row0, _ = patch_ops.patch_origins(sp_l, kp_x, kp_y, kp_l)
+        row0_local = row0 - rb[kp_l].to(torch.int32)
+        # narrow-window column selection: leftmost needed column a; the plain
+        # copy iff the 52-px span fits its 128-column tile, else the shifted one
+        xi = torch.round(kp_x).to(torch.int32)
+        a = torch.clamp(xi - 26, min=0)
+        shift = (a % 128) > 75
+        c0 = torch.where(shift, ((a - 64) // 128) * 128, (a // 128) * 128).to(torch.int32)
+        col0_eff = c0 + torch.where(shift, 64, 0).to(torch.int32)   # window col 0, level coords
+        row0_dma = (row0 + boff.to(torch.int32)
+                    + torch.where(shift, 3 * R_tot, 0).to(torch.int32))
+        # orientation window: 48 rows of Lx / Ly (base offset + R_tot skips L),
+        # 8-aligned inside the 64-row patch so it covers [y - 17, y + 17]
+        yi_rel = torch.round(kp_y).to(torch.int32) - row0_local
+        ro = torch.clamp(((yi_rel - 17) // 8) * 8, 0, 16).to(torch.int32)
+        row0_ori = row0_dma + R_tot + ro
+        mark("sampling")
 
-    def sampler2(lx, ly):
-        return patch_ops.sample_raster_flat(src6, R_tot, row0_ori, c0, lx, ly,
-                                            C=2, ph=48, pw=128)
+    with span("coloc.akaze.describe"):
+        def sampler2(lx, ly):
+            return patch_ops.sample_raster_flat(src6, R_tot, row0_ori, c0, lx, ly,
+                                                C=2, ph=48, pw=128)
 
-    def sampler3(lx, ly):
-        return patch_ops.sample_raster_flat(src6, R_tot, row0_dma, c0, lx, ly,
-                                            C=3, pw=128)
+        def sampler3(lx, ly):
+            return patch_ops.sample_raster_flat(src6, R_tot, row0_dma, c0, lx, ly,
+                                                C=3, pw=128)
 
-    kp_angle = mldb.orientation(sampler2, kp_x, kp_y, kp_sig, w_l, h_l,
-                                col0_eff, row0_local + ro)
-    mark("orientation")
-    desc = mldb.describe_mldb(sampler3, kp_x, kp_y, kp_sig, kp_angle, w_l, h_l,
-                              col0_eff, row0_local,
-                              cell_samples=opts.akaze_cell_samples)
-    mark("descriptor")
+        kp_angle = mldb.orientation(sampler2, kp_x, kp_y, kp_sig, w_l, h_l,
+                                    col0_eff, row0_local + ro)
+        mark("orientation")
+        desc = mldb.describe_mldb(sampler3, kp_x, kp_y, kp_sig, kp_angle, w_l, h_l,
+                                  col0_eff, row0_local,
+                                  cell_samples=opts.akaze_cell_samples)
+        mark("descriptor")
 
-    # base-resolution coordinates
-    up = tables.up[kp_l]
-    xy = torch.stack([kp_x * up, kp_y * up], dim=-1)
-    feats = Features(
-        xy=torch.where(valid[:, None], xy, 0.0),
-        score=torch.where(valid, top_s, 0.0),
-        scale=torch.where(valid, kp_l, 0).to(torch.int32),
-        angle=torch.where(valid, kp_angle, 0.0),
-        desc=desc,
-        valid=valid,
-    )
+        # base-resolution coordinates
+        up = tables.up[kp_l]
+        xy = torch.stack([kp_x * up, kp_y * up], dim=-1)
+        feats = Features(
+            xy=torch.where(valid[:, None], xy, 0.0),
+            score=torch.where(valid, top_s, 0.0),
+            scale=torch.where(valid, kp_l, 0).to(torch.int32),
+            angle=torch.where(valid, kp_angle, 0.0),
+            desc=desc,
+            valid=valid,
+        )
     return Features(*(t.reshape((B, k) + t.shape[1:]) for t in feats))
