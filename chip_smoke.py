@@ -37,6 +37,14 @@ matcher against a 262144-row bank. Phases:
                 timed in turns with these on the same inputs, B2, B10, B11
                 and B12 held bit for bit against the parent's, and B6-B9
                 against the parent's wherever the parent equals the twin
+  3p pose LM  — the pose LM's kernels (pose_lm.cu: the LM's iterations of a
+                call, the covariance) against their twins at the session's
+                shapes (D = 2, L = 1024 and 5000) and serving's (D = 64,
+                L = 1024): one launch a call; one iteration and a call of
+                LM_GRAPH_STEPS iterations (near and far starts, and
+                max_iterations inside the call) held to the card tests'
+                tolerances; the planted lanes to their end; wrapper and
+                device times beside the twin's and the bound
   4. slice    — FRAMES frames through match_with_map + localize_image on
                 random features, checked against the identity ground
                 truth, plus frame 0 through the plain CPU path with the
@@ -249,41 +257,48 @@ KERNEL_INFO = {
     "sample_raster": ("coloc_tpu_torch/csrc/sample_raster.cu",
                       "coloc_tpu/ops/patches.py:216"),
     "k2nn_group": ("coloc_tpu_torch/csrc/k2nn_group.cu", "coloc_tpu/ops/hamming.py:360"),
+    "pose_lm": ("coloc_tpu_torch/csrc/pose_lm.cu",
+                "none: coloc_tpu/sfm/ba.py refine_pose_only is XLA ops"),
+    "pose_cov": ("coloc_tpu_torch/csrc/pose_lm.cu",
+                 "none: coloc_tpu/sfm/ba.py refine_pose_only is XLA ops"),
 }
 FRAME_KERNELS = ("k2nn", "p3p", "ransac_rank", "fast_nms", "extract")
+# the pose LM's kernels: every path that refines a pose launches both
+POSE_KERNELS = ("pose_lm", "pose_cov")
 AKAZE_KERNELS = ("k2nn", "p3p", "ransac_rank", "fed_octave", "sample_raster")
 BOOTSTRAP_KERNELS = ("fivept_front", "fivept_dk", "fivept_polish", "epi_rank")
 # the kernels each driven path must launch
 PATH_KERNELS = {
-    "4 slice": ("k2nn", "p3p", "ransac_rank"),
-    "4b frame": FRAME_KERNELS,
-    "4c step": FRAME_KERNELS,
-    "4d session": FRAME_KERNELS + BOOTSTRAP_KERNELS,
-    "4e akaze frame": AKAZE_KERNELS,
-    "4f akaze session": AKAZE_KERNELS + BOOTSTRAP_KERNELS,
+    "4 slice": ("k2nn", "p3p", "ransac_rank") + POSE_KERNELS,
+    "4b frame": FRAME_KERNELS + POSE_KERNELS,
+    "4c step": FRAME_KERNELS + POSE_KERNELS,
+    "4d session": FRAME_KERNELS + BOOTSTRAP_KERNELS + POSE_KERNELS,
+    "4e akaze frame": AKAZE_KERNELS + POSE_KERNELS,
+    "4f akaze session": AKAZE_KERNELS + BOOTSTRAP_KERNELS + POSE_KERNELS,
     "4g large map": ("k2nn_group", "k2nn"),
-    "4h chunked": FRAME_KERNELS + BOOTSTRAP_KERNELS,
-    "4h akaze chunked": AKAZE_KERNELS,
+    "4h chunked": FRAME_KERNELS + BOOTSTRAP_KERNELS + POSE_KERNELS,
+    "4h akaze chunked": AKAZE_KERNELS + POSE_KERNELS,
     "4i fusion": ("k2nn",) + BOOTSTRAP_KERNELS,
-    "4j bootstrap": FRAME_KERNELS + BOOTSTRAP_KERNELS,
+    "4j bootstrap": FRAME_KERNELS + BOOTSTRAP_KERNELS + POSE_KERNELS,
     "4j model F": ("k2nn", "fast_nms", "extract", "epi_rank"),
     "4j model H": ("k2nn", "fast_nms", "extract", "ransac_rank"),
-    "4k extend_map": FRAME_KERNELS,
+    "4k extend_map": FRAME_KERNELS + POSE_KERNELS,
     "4k merge_map_from": ("k2nn",),
-    "4l plumbing": FRAME_KERNELS + BOOTSTRAP_KERNELS,
-    "4m serving": FRAME_KERNELS,
-    "4n serve runner": FRAME_KERNELS,
-    "4n peers": FRAME_KERNELS + BOOTSTRAP_KERNELS,
-    "4o step": FRAME_KERNELS + BOOTSTRAP_KERNELS,
-    "4o scan": FRAME_KERNELS + BOOTSTRAP_KERNELS,
-    "4o serving": FRAME_KERNELS,
+    "4l plumbing": FRAME_KERNELS + BOOTSTRAP_KERNELS + POSE_KERNELS,
+    "4m serving": FRAME_KERNELS + POSE_KERNELS,
+    "4n serve runner": FRAME_KERNELS + POSE_KERNELS,
+    "4n peers": FRAME_KERNELS + BOOTSTRAP_KERNELS + POSE_KERNELS,
+    "4o step": FRAME_KERNELS + BOOTSTRAP_KERNELS + POSE_KERNELS,
+    "4o scan": FRAME_KERNELS + BOOTSTRAP_KERNELS + POSE_KERNELS,
+    "4o serving": FRAME_KERNELS + POSE_KERNELS,
     "4o match": ("k2nn",),
 }
 # the phase whose launches the kernels line reports
 LAUNCH_PHASE = {**{name: "4b frame" for name in FRAME_KERNELS},
                 **{name: "4d session" for name in BOOTSTRAP_KERNELS},
                 "fed_octave": "4e akaze frame", "sample_raster": "4e akaze frame",
-                "k2nn_group": "4g large map"}
+                "k2nn_group": "4g large map",
+                **{name: "4h chunked" for name in POSE_KERNELS}}
 
 
 class SmokeFailure(RuntimeError):
@@ -437,16 +452,179 @@ def sass_scan(lib_path: Path, nvcc: str) -> dict:
     return {f: (sorted(ops), local[f]) for f, ops in found.items()}
 
 
-def rank_cases():
-    """tests/rank_cases.py of this checkout, the planted B3 inputs that the
-    tests use too, loaded by its path."""
+def tests_module(stem: str):
+    """tests/<stem>.py of this checkout, loaded by its path: the planted B3
+    inputs (rank_cases) or the pose LM's problems (pose_cases) that the
+    tests use too."""
     import importlib.util
 
-    path = Path(__file__).resolve().parent / "tests" / "rank_cases.py"
-    spec = importlib.util.spec_from_file_location("coloc_rank_cases", path)
+    path = Path(__file__).resolve().parent / "tests" / f"{stem}.py"
+    spec = importlib.util.spec_from_file_location(f"coloc_{stem}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def phase_3p(torch, np, dev, card, results):
+    """The pose LM's kernels against their plain twins (ba's PyTorch form
+    on the same card tensors) at the session's shapes (D = 2; L = 1024,
+    TRIP's keypoints, and 5000, AKAZE's) and serving's (D = 64, L = 1024),
+    on tests/pose_cases.frame_lanes problems: one launch a call; one
+    iteration's bookkeeping equal and poses within 1e-5; a call of
+    n = LM_GRAPH_STEPS iterations (a head or middle graph's), from the
+    session-like start, from a farther one and with max_iterations 2 inside
+    the call, held as tests/test_torch_pose_lm.py holds it: each lane's pose
+    no farther from a float64 twin than twice the float32 twin's distance
+    plus 1e-5 (a lane not clear of the rounding floor may instead stand a
+    step away at a float64 cost within pose_cases.COST_FLOOR of the
+    twin's), iterations and
+    active equal on the lanes whose decisions are clear of the floor
+    (pose_cases.clear_lanes; the far start must have some); the planted
+    lanes (pose_cases.lanes, one stops at the damping cap) run to their end
+    in calls of n; the covariance at the twin's solution within 1e-4. Wrapper and device ms of the LM at n and
+    of the covariance, beside the twin's and the bound. Fills
+    results["pose_lm"] and results["pose_cov"] at D = 2, L = 5000."""
+    from contextlib import contextmanager
+    from dataclasses import replace
+
+    from coloc_tpu_torch.config import RefinerOptions
+    from coloc_tpu_torch.ops import dispatch
+    from coloc_tpu_torch.session import LM_GRAPH_STEPS
+    from coloc_tpu_torch.sfm import ba
+
+    cases = tests_module("pose_cases")
+    opts = RefinerOptions()
+    n = LM_GRAPH_STEPS
+
+    @contextmanager
+    def plain():
+        use = dispatch.use_kernel
+        dispatch.use_kernel = lambda t: False
+        try:
+            yield
+        finally:
+            dispatch.use_kernel = use
+
+    def lane_gap(a, b):
+        """Per lane: max |dR| and max |dC| / sqrt(|C|^2 + 1), in float64."""
+        dR = (a.R.double() - b.R.double()).abs().flatten(1).amax(dim=1)
+        dC = ((a.C.double() - b.C.double()).abs().amax(dim=1)
+              / torch.sqrt((b.C.double() ** 2).sum(dim=1) + 1.0))
+        return dR, dC
+
+    def f64(ts):
+        return tuple(t.double() if t.is_floating_point() else t for t in ts)
+
+    def n_steps(case, o, label, need_clear):
+        """One call of n iterations on the kernel, the twin and the twin in
+        float64, held as the docstring says."""
+        st = ba.pose_lm_init(case[0], case[1])
+        got = ba.pose_lm_steps(st, *case[2:], o, n)
+        with plain():
+            want = ba.pose_lm_steps(st, *case[2:], o, n)
+            exact = ba.pose_lm_steps(ba.PoseLM(*f64(st)), *f64(case[2:]), o, n)
+        clear = cases.clear_lanes(case, o, n)
+        kR, kC = lane_gap(got, exact)
+        pR, pC = lane_gap(want, exact)
+        excess = cases.cost_excess(case, o, got, exact)
+        close = (kR <= 2 * pR + 1e-5) & (kC <= 2 * pC + 1e-5)
+        near = bool((close | (~clear & (excess <= cases.COST_FLOOR))).all())
+        agree = (got.iterations == want.iterations) & (got.active == want.active)
+        same = bool(agree[clear].all())
+        print(f"[3p pose_lm {label}] n={n}, max_iterations {o.max_iterations}: from the "
+              f"float64 twin |dR| {float(kR.max()):.3e} (float32 twin {float(pR.max()):.3e}), "
+              f"|dC| {float(kC.max()):.3e} ({float(pC.max()):.3e}); {int((~close).sum())} "
+              f"lanes farther, float64 cost above the twin's by at most "
+              f"{float(excess[~close].max()) if bool((~close).any()) else 0.0:.3e}; iterations "
+              f"and active equal on {int(agree[clear].sum())} of {int(clear.sum())} clear lanes "
+              f"({int(agree.sum())} of {agree.numel()} in all)")
+        check(near and same and (bool(clear.any()) or not need_clear),
+              f"pose_lm {label}: n={n} (max_iterations {o.max_iterations}): poses within "
+              f"2x the twin's distance + 1e-5 of the float64 twin, or at the floor within "
+              f"{cases.COST_FLOOR:g} of its cost, {near}; bookkeeping equal on the clear lanes "
+              f"{same}, "
+              f"{int(clear.sum())} clear lanes")
+
+    lanes = tuple(t.to(dev) for t in cases.lanes())
+    got = ba.pose_lm_run(ba.pose_lm_init(lanes[0], lanes[1]), *lanes[2:], opts, n)
+    with plain():
+        want = ba.pose_lm_run(ba.pose_lm_init(lanes[0], lanes[1]), *lanes[2:], opts, n)
+    dR, dC = lane_gap(got, want)
+    check(torch.equal(got.iterations, want.iterations) and torch.equal(got.active, want.active)
+          and not bool(got.active.any()) and float(dR[:2].max()) < 1e-5
+          and float(dC[:2].max()) < 1e-5,
+          f"pose_lm planted lanes in calls of {n}: iterations {got.iterations.tolist()} "
+          f"(twin {want.iterations.tolist()}), |dR| {float(dR[:2].max()):.3e}, "
+          f"|dC| {float(dC[:2].max()):.3e}")
+    print(f"[3p pose_lm lanes] calls of {n} to the end: iterations {got.iterations.tolist()} "
+          f"equal to the twin's, all stopped, |dR| {float(dR[:2].max()):.3e}, "
+          f"|dC| {float(dC[:2].max()):.3e} on the converging lanes")
+
+    for D, L in ((2, 1024), (2, 5000), (64, 1024)):
+        tag = f"D={D} L={L}"
+        case = tuple(t.to(dev) for t in cases.frame_lanes(D, L, seed=SEED + 7 * D + L))
+        R0, C0, X, uv, inl, Ks, dists = case
+        st = ba.pose_lm_init(R0, C0)
+        before = dispatch.launch_counts()
+        one = ba.pose_lm_steps(st, X, uv, inl, Ks, dists, opts, 1)
+        with plain():
+            one_p = ba.pose_lm_steps(st, X, uv, inl, Ks, dists, opts, 1)
+            sol = ba.pose_lm_run(st, X, uv, inl, Ks, dists, opts, 1)
+            cov_p = ba.pose_lm_finish(sol, X, uv, inl, Ks, dists, opts)
+        cov_k = ba.pose_lm_finish(sol, X, uv, inl, Ks, dists, opts)
+        torch.cuda.synchronize()
+        after = dispatch.launch_counts()
+        check(after["pose_lm"] == before["pose_lm"] + 1
+              and after["pose_cov"] == before["pose_cov"] + 1,
+              f"pose kernels {tag}: launches {after['pose_lm'] - before['pose_lm']} LM, "
+              f"{after['pose_cov'] - before['pose_cov']} covariance (want 1, 1)")
+        same = all(torch.equal(getattr(one, f), getattr(one_p, f))
+                   for f in ("active", "iterations", "it", "lam", "nu"))
+        dR1, dC1 = (float(v.max()) for v in lane_gap(one, one_p))
+        check(same and dR1 < 1e-5 and dC1 < 1e-5,
+              f"pose_lm {tag}: one iteration differs from the twin (bookkeeping equal "
+              f"{same}, |dR| {dR1:.3e}, |dC| {dC1:.3e})")
+        n_steps(case, opts, tag, need_clear=False)
+        far = tuple(t.to(dev) for t in cases.frame_lanes(
+            D, L, seed=SEED + 7 * D + L + 1, rot=0.1, shift=0.3))
+        n_steps(far, opts, f"{tag} far", need_clear=True)
+        n_steps(far, replace(opts, max_iterations=2), f"{tag} far", need_clear=True)
+        cov_err = max(float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
+                      for a, b in zip(cov_k.cov, cov_p.cov))
+        rmse_err = float(((cov_k.rmse - cov_p.rmse).abs() / cov_p.rmse.abs()).max())
+        check(cov_err < 1e-4 and rmse_err < 1e-5 and torch.equal(cov_k.n_obs, cov_p.n_obs),
+              f"pose_cov {tag}: cov {cov_err:.3e}, rmse {rmse_err:.3e} from the twin")
+        # bounds: each input byte read once; the twin's ~290 flops a point an
+        # iteration (linearization, weights, U, g, the cost at the candidate)
+        # and ~250 a point for the covariance's linearization
+        nbytes = D * L * 21 + D * 4 * (9 + 3 + 9 + 3)
+        lm = dict(ms=cuda_ms(lambda: ba._pose_lm_steps_cuda(st, X, uv, inl, Ks, dists, opts, n)),
+                  device_ms=device_ms(lambda: ba._pose_lm_steps_cuda(
+                      st, X, uv, inl, Ks, dists, opts, n), "pose_lm_kernel"),
+                  plain_ms=cuda_ms(lambda: ba._pose_lm_steps_plain(
+                      st, X, uv, inl, Ks, dists, opts, n), warmup=3, iters=20),
+                  max_abs_err=max(dR1, dC1), library_ms=None,
+                  **bound(nbytes, n * D * L * 290.0, FP32_FLOPS))
+        cv = dict(ms=cuda_ms(lambda: ba._pose_cov_cuda(sol.R, sol.C, X, uv, inl, Ks, dists,
+                                                       opts.huber_delta_sq)),
+                  device_ms=device_ms(lambda: ba._pose_cov_cuda(
+                      sol.R, sol.C, X, uv, inl, Ks, dists, opts.huber_delta_sq),
+                      "pose_cov_kernel"),
+                  plain_ms=cuda_ms(lambda: ba._pose_cov_plain(
+                      sol.R, sol.C, X, uv, inl, Ks, dists, opts.huber_delta_sq),
+                      warmup=3, iters=20),
+                  max_abs_err=cov_err, library_ms=None,
+                  **bound(nbytes + D * 4 * 38, D * L * 250.0, FP32_FLOPS))
+        print(f"[3p pose_lm {tag}] n={n}: wrapper {fmt_ms(lm['ms'])}, device "
+              f"{fmt_ms(lm['device_ms'])}, plain {fmt_ms(lm['plain_ms'])}, bound "
+              f"{lm['bound_ms']:.5f} ms ({lm['bound_by']}); one iteration equal to the twin's "
+              f"bookkeeping, |dR| {dR1:.3e}, |dC| {dC1:.3e}  ({card})")
+        print(f"[3p pose_cov {tag}] wrapper {fmt_ms(cv['ms'])}, device {fmt_ms(cv['device_ms'])}, "
+              f"plain {fmt_ms(cv['plain_ms'])}, bound {cv['bound_ms']:.5f} ms "
+              f"({cv['bound_by']}); cov {cov_err:.3e}, rmse {rmse_err:.3e} from the twin  "
+              f"({card})")
+        if (D, L) == (2, 5000):
+            results["pose_lm"], results["pose_cov"] = lm, cv
 
 
 def k2nn_case(np, torch, dev, Q, T, seed):
@@ -741,6 +919,11 @@ def phase_4h(torch, np, dev, card, cfg_d, Ks2, dists2, frames, traj, counts):
     counts["4h chunked"] = dispatch.launch_counts()
     g = sess_c._graphs
     check(g is not None, "run_chunked did not step a captured graph")
+    check([r["pose_lm"] for r in g.records] == [1, 1, 0]
+          and [r["pose_cov"] for r in g.records] == [0, 0, 1],
+          f"4h: pose kernels a head, middle and tail graph "
+          f"{[(r['pose_lm'], r['pose_cov']) for r in g.records]}, want one LM launch a head "
+          f"or middle graph and one covariance a tail")
     errs, accepted = [], torch.zeros(2, dtype=torch.int32)
     out_e = {0: [], 1: []}
     equal = True
@@ -784,8 +967,14 @@ def phase_4h(torch, np, dev, card, cfg_d, Ks2, dists2, frames, traj, counts):
     g.load(sess_c)
     reads0 = g.host_reads
     fb, sup, last = sess_c.filter_bank, sess_c.lm_support, sess_c.lm_last_seen
+    lm_launches = 0
     for f in range(CHECKED):
+        before = dispatch.launch_counts()
         out = g.replay(block[f], u[f])
+        after = dispatch.launch_counts()
+        lm_launches += after["pose_lm"] - before["pose_lm"]
+        check(after["pose_cov"] - before["pose_cov"] == 1,
+              f"4h: frame {f} launched {after['pose_cov'] - before['pose_cov']} covariances")
         pwcs, fb, filt, dist_g, rej, eulers, sup_inc = session.intra_all_device_step(
             cfg_d, block[f], sess_c.mapdb, sess_c._map_bank(), sess_c.Ks, sess_c.dists, fb,
             uniforms=u[f])
@@ -802,7 +991,9 @@ def phase_4h(torch, np, dev, card, cfg_d, Ks2, dists2, frames, traj, counts):
     print(f"[4h equal] {CHECKED} frames: the captured step equal to the eager step on every "
           f"output, the filter bank and the support (torch.equal); "
           f"{nodes if nodes is not None else 'not measured'} graph nodes a frame (head and "
-          f"tail), {(g.host_reads - reads0) / CHECKED:.2f} host reads a frame  ({card})")
+          f"tail), {(g.host_reads - reads0) / CHECKED:.2f} host reads a frame, "
+          f"{lm_launches / CHECKED:.2f} pose_lm launches a frame (one a head or middle "
+          f"replay), 1 pose_cov  ({card})")
 
     # frames/s and step p50/p99: captured chunks and eager frames in turns
     block_c = torch.stack([torch.stack([torch.from_numpy(frames[d][f]) for d in range(2)])
@@ -862,8 +1053,19 @@ def phase_4h_akaze(torch, np, dev, card, cfg_a, sess_a, frames_h, traj_h, counts
     g.load(sess_a)
     reads0 = g.host_reads
     fb, sup, last = sess_a.filter_bank, sess_a.lm_support, sess_a.lm_last_seen
+    check([r["pose_lm"] for r in g.records] == [1, 1, 0]
+          and [r["pose_cov"] for r in g.records] == [0, 0, 1],
+          f"4h AKAZE: pose kernels a head, middle and tail graph "
+          f"{[(r['pose_lm'], r['pose_cov']) for r in g.records]}")
+    lm_launches = 0
     for f in range(CHECKED):
+        before = dispatch.launch_counts()
         got = g.replay(block[f], u[f])
+        after = dispatch.launch_counts()
+        lm_launches += after["pose_lm"] - before["pose_lm"]
+        check(after["pose_cov"] - before["pose_cov"] == 1,
+              f"4h AKAZE: frame {f} launched {after['pose_cov'] - before['pose_cov']} "
+              f"covariances")
         pwcs, fb, filt, dist_g, rej, eulers, sup_inc = session.intra_all_device_step(
             cfg_a, block[f], sess_a.mapdb, sess_a._map_bank(), sess_a.Ks, sess_a.dists, fb,
             uniforms=u[f])
@@ -880,7 +1082,9 @@ def phase_4h_akaze(torch, np, dev, card, cfg_a, sess_a, frames_h, traj_h, counts
     print(f"[4h akaze equal] {CHECKED} frames: the captured AKAZE step equal to the eager step "
           f"on every output, the filter bank and the support (torch.equal); "
           f"{nodes if nodes is not None else 'not measured'} graph nodes a frame (head and "
-          f"tail), {(g.host_reads - reads0) / CHECKED:.2f} host reads a frame  ({card})")
+          f"tail), {(g.host_reads - reads0) / CHECKED:.2f} host reads a frame, "
+          f"{lm_launches / CHECKED:.2f} pose_lm launches a frame (one a head or middle "
+          f"replay), 1 pose_cov  ({card})")
     chunk_timing(torch, np, "4h akaze timing", sess_a, sess_a, block, card)
     profile_frames(torch, f"4h akaze captured, a {CHUNK}-frame chunk",
                    lambda f: sess_a.intra_pose_chunk(block), 1, CHUNK)
@@ -3287,7 +3491,7 @@ def main(argv=None) -> int:
     v_m = torch.from_numpy(rrng.random(AKAZE_RANK_M) > 0.2).to(dev)
     ops_m = tuple(t.contiguous() for t in ransac_rank.p3p_operands(
         flats_main.reshape(-1, 12), X_m, bc[pick], v_m, focal))
-    cases = rank_cases()
+    cases = tests_module("rank_cases")
     planted = tuple(torch.from_numpy(a).to(dev) for a in cases.planted_rank_operands())
     tiled = tuple(torch.from_numpy(a).to(dev) for a in cases.planted_rank_operands(97))
     tiled = (tiled[0].repeat(167, 1)[:1000].contiguous(), *tiled[1:])
@@ -4100,6 +4304,10 @@ def main(argv=None) -> int:
         check_group(f"edges Q={Qc} x T={Tc}", hamming.prefilter_words(
             torch.from_numpy(qd_e.view(np.int32)).to(dev)), bank_e)
     del part_bank
+
+    lap("3p")
+    # ---- phase 3p: the pose LM's kernels against their twins -------------
+    phase_3p(torch, np, dev, card, results)
     for name, r in results.items():
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         if "device_ms" in r:

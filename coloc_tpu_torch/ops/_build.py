@@ -57,6 +57,8 @@ _SIGNATURES = {
     "coloc_fed_octave": [_P] * 7 + [_I] * 4 + [_P] * 3 + [_I, _P],
     "coloc_sample_raster": [_P] * 6 + [_I] * 8 + [_I, _P],
     "coloc_k2nn_group": [_P] * 5 + [_I] * 3 + [_I, _P],
+    "coloc_pose_lm": [_P] * 21 + [_I] * 4 + [_F, _F] + [_I, _P],
+    "coloc_pose_cov": [_P] * 10 + [_I] * 2 + [_F] + [_I, _P],
 }
 
 _libs = _libcache.Libraries("CUDA")

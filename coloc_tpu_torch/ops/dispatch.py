@@ -27,7 +27,7 @@ import torch
 
 KERNELS = ("k2nn", "p3p", "ransac_rank", "fast_nms", "extract",
            "fivept_front", "fivept_dk", "fivept_polish", "epi_rank",
-           "fed_octave", "sample_raster", "k2nn_group")
+           "fed_octave", "sample_raster", "k2nn_group", "pose_lm", "pose_cov")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 

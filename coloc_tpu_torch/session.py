@@ -92,11 +92,13 @@ from coloc_tpu_torch.types import (Features, MapDB, Matches, Pose, PoseWithCov,
                                    TwoViewGeometry)
 
 # LM iterations between two host reads of a loop's exit, chosen by
-# measurement (scripts/prof_torch_loop_exit.py, PERF.md §6): the eager pose
-# LM and the bootstrap's BA and Gauss-Newton read theirs every iteration (a
-# read costs less than a masked iteration's ~100 launches); the captured
-# step's head and middle graphs run LM_GRAPH_STEPS iterations each (the
-# pose LM mostly stops at its third)
+# measurement (scripts/prof_torch_loop_exit.py, PERF.md §6) while a pose-LM
+# iteration was ~100 launches: the eager pose LM and the bootstrap's BA and
+# Gauss-Newton read theirs every iteration (a read cost less than a masked
+# iteration); the captured step's head and middle graphs run LM_GRAPH_STEPS
+# iterations each (the pose LM mostly stops at its third). On the card the
+# pose LM is now one launch a call whatever its iterations
+# (csrc/pose_lm.cu), which leaves its two periods to be measured again.
 LM_CHECK_EVERY = 1
 BOOTSTRAP_CHECK_EVERY = 1
 LM_GRAPH_STEPS = 3

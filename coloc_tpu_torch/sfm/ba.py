@@ -14,7 +14,11 @@ and CENTER shift, and the covariance is returned in that order.
   refine_pose_only  — one pose per drone, structure fixed
                       (Localizer.hpp:132-133), over a leading drone axis;
                       pose_lm_init / pose_lm_steps / pose_lm_finish are its
-                      three parts, which a captured frame step replays
+                      three parts, which a captured frame step replays.
+                      For CUDA tensors pose_lm_steps is one launch of
+                      csrc/pose_lm.cu's LM kernel (a call's iterations) and
+                      pose_lm_finish one of its covariance kernel; the
+                      PyTorch forms here are their plain twins (the CPU path)
 
 The LM loops are in done-mask form, coloc_tpu's lax.while_loop written
 out: a lane (a drone, or the one problem of `refine`) carries `active`,
@@ -49,6 +53,7 @@ import torch
 from coloc_tpu_torch.config import RefinerOptions
 from coloc_tpu_torch.geometry import camera as cam_ops
 from coloc_tpu_torch.geometry import so3
+from coloc_tpu_torch.ops import _build, dispatch
 from coloc_tpu_torch.profiling import span
 
 
@@ -238,7 +243,49 @@ def pose_lm_steps(state: PoseLM, X, uv, inliers, K, dist, opts: RefinerOptions,
                   n: int) -> PoseLM:
     """`n` masked LM iterations of every drone (X (D, L, 3), uv (D, L, 2),
     inliers (D, L), K (D, 3, 3), dist (D, 3)). An iteration past
-    opts.max_iterations, or of a stopped lane, changes nothing but `it`."""
+    opts.max_iterations, or of a stopped lane, changes nothing but `it`.
+    One kernel launch for CUDA tensors, the plain twin for CPU tensors."""
+    if dispatch.use_kernel(X):
+        return _pose_lm_steps_cuda(state, X, uv, inliers, K, dist, opts, n)
+    return _pose_lm_steps_plain(state, X, uv, inliers, K, dist, opts, n)
+
+
+def _problem_operands(X, uv, inliers, K, dist):
+    D, L = X.shape[0], X.shape[1]
+    dev = X.device
+    ops = (X.contiguous(), uv.contiguous(), inliers.contiguous(), K.contiguous(),
+           dist.contiguous())
+    for t, name, dtype, shape in zip(
+            ops, ("X", "uv", "inliers", "K", "dist"),
+            (torch.float32, torch.float32, torch.bool, torch.float32, torch.float32),
+            ((D, L, 3), (D, L, 2), (D, L), (D, 3, 3), (D, 3))):
+        dispatch.check_operand(t, name, dtype, shape, dev)
+    return ops
+
+
+def _pose_lm_steps_cuda(state: PoseLM, X, uv, inliers, K, dist, opts: RefinerOptions,
+                        n: int) -> PoseLM:
+    """pose_lm_steps as one pose_lm_kernel launch into a new PoseLM."""
+    D, L = X.shape[0], X.shape[1]
+    dev = X.device
+    problem = _problem_operands(X, uv, inliers, K, dist)
+    ins = PoseLM(*(t.contiguous() for t in state))
+    for t, name, dtype, shape in zip(
+            ins, PoseLM._fields,
+            (torch.float32,) * 5 + (torch.bool, torch.int32, torch.int32),
+            ((D, 3, 3), (D, 3), (D,), (D,), (D,), (D,), (D,), ())):
+        dispatch.check_operand(t, name, dtype, shape, dev)
+    outs = PoseLM(*(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in ins))
+    _build.launch("coloc_pose_lm", *(t.data_ptr() for t in ins),
+                  *(t.data_ptr() for t in problem), *(t.data_ptr() for t in outs),
+                  D, L, n, opts.max_iterations, opts.huber_delta_sq,
+                  opts.tolerance * 10.0 + 1e-6, dev.index, dispatch.stream_handle(dev))
+    dispatch.count_launch("pose_lm")
+    return outs
+
+
+def _pose_lm_steps_plain(state: PoseLM, X, uv, inliers, K, dist, opts: RefinerOptions,
+                         n: int) -> PoseLM:
     delta_sq = opts.huber_delta_sq
     mask_f = inliers.to(torch.float32)
     cam = _pose_cam(K, dist)
@@ -299,21 +346,51 @@ def pose_lm_finish(state: PoseLM, X, uv, inliers, K, dist,
                    opts: RefinerOptions) -> BAResult:
     """Covariance (undamped, the floored PSD inverse) and rmse at the LM's
     solution -> BAResult with a leading drone axis: Rs/Cs stack a fixed
-    identity view 0 with the refined pose at index 1 (cov_view=1)."""
-    delta_sq = opts.huber_delta_sq
-    mask_f = inliers.to(torch.float32)
-    n_obs = inliers.to(torch.int32).sum(dim=-1)
+    identity view 0 with the refined pose at index 1 (cov_view=1). The
+    covariance, rmse and inlier count are one kernel launch for CUDA
+    tensors, the plain twin for CPU tensors."""
     R, C = state.R, state.C
-    J, r = _jac_res(R, C, _pose_cam(K, dist), X, uv)
-    res_sq = (r * r).sum(dim=-1)
-    Jw = J * (_huber_weights(res_sq, delta_sq) * mask_f)[..., None, None]
-    cov = _spd_inv_jacobi(torch.einsum("dlri,dlrj->dij", Jw, Jw))
-    rmse = torch.sqrt((res_sq * mask_f).sum(dim=-1) / torch.clamp(n_obs, min=1))
+    if dispatch.use_kernel(X):
+        cov, rmse, n_obs = _pose_cov_cuda(R, C, X, uv, inliers, K, dist,
+                                          opts.huber_delta_sq)
+    else:
+        cov, rmse, n_obs = _pose_cov_plain(R, C, X, uv, inliers, K, dist,
+                                           opts.huber_delta_sq)
     eye3 = torch.eye(3, dtype=torch.float32, device=R.device).expand(R.shape)
     return BAResult(
         Rs=torch.stack([eye3, R], dim=1),
         Cs=torch.stack([torch.zeros_like(C), C], dim=1),
         X=X, cov=cov, rmse=rmse, n_obs=n_obs, iterations=state.iterations)
+
+
+def _pose_cov_cuda(R, C, X, uv, inliers, K, dist, delta_sq: float):
+    """_pose_cov_plain as one pose_cov_kernel launch."""
+    D, L = X.shape[0], X.shape[1]
+    dev = X.device
+    problem = _problem_operands(X, uv, inliers, K, dist)
+    R, C = R.contiguous(), C.contiguous()
+    dispatch.check_operand(R, "R", torch.float32, (D, 3, 3), dev)
+    dispatch.check_operand(C, "C", torch.float32, (D, 3), dev)
+    cov = torch.empty((D, 6, 6), dtype=torch.float32, device=dev)
+    rmse = torch.empty(D, dtype=torch.float32, device=dev)
+    n_obs = torch.empty(D, dtype=torch.int32, device=dev)
+    _build.launch("coloc_pose_cov", R.data_ptr(), C.data_ptr(),
+                  *(t.data_ptr() for t in problem), cov.data_ptr(), rmse.data_ptr(),
+                  n_obs.data_ptr(), D, L, delta_sq, dev.index, dispatch.stream_handle(dev))
+    dispatch.count_launch("pose_cov")
+    return cov, rmse, n_obs
+
+
+def _pose_cov_plain(R, C, X, uv, inliers, K, dist, delta_sq: float):
+    """-> cov (D, 6, 6), rmse (D,), n_obs (D,) int32 at (R, C)."""
+    mask_f = inliers.to(torch.float32)
+    n_obs = inliers.to(torch.int32).sum(dim=-1)
+    J, r = _jac_res(R, C, _pose_cam(K, dist), X, uv)
+    res_sq = (r * r).sum(dim=-1)
+    Jw = J * (_huber_weights(res_sq, delta_sq) * mask_f)[..., None, None]
+    cov = _spd_inv_jacobi(torch.einsum("dlri,dlrj->dij", Jw, Jw))
+    rmse = torch.sqrt((res_sq * mask_f).sum(dim=-1) / torch.clamp(n_obs, min=1))
+    return cov, rmse, n_obs
 
 
 def refine_pose_only(

@@ -280,14 +280,22 @@ def _captured_step_equals_eager(dev, backend):
     u = torch.rand((2, 2, 256, 3), device=dev, generator=torch.Generator(dev).manual_seed(3))
     g = sess_mod._StepGraphs(sess)
     g.load(sess)
+    # the pose LM: one launch a head or middle graph, its covariance one a tail
+    assert [r["pose_lm"] for r in g.records] == [1, 1, 0]
+    assert [r["pose_cov"] for r in g.records] == [0, 0, 1]
     fb, sup, last = sess.filter_bank, sess.lm_support, sess.lm_last_seen
     for f in range(2):
-        before = dispatch.launch_counts()
+        before, reads = dispatch.launch_counts(), g.host_reads
         out = g.replay(images, u[f])
         torch.cuda.synchronize()
         after = dispatch.launch_counts()
         for name, n in STEP_LAUNCHES[backend].items():
             assert after[name] - before[name] == n, name
+        # a middle replay follows each exit read but a last one that finds
+        # every lane stopped
+        middles = after["pose_lm"] - before["pose_lm"] - 1
+        assert middles in (g.host_reads - reads - 1, g.host_reads - reads)
+        assert after["pose_cov"] - before["pose_cov"] == 1
         pwcs, fb, filt, dist_g, rej, eulers, sup_inc = sess_mod.intra_all_device_step(
             sess.config, images, sess.mapdb, sess._map_bank(), sess.Ks, sess.dists, fb,
             uniforms=u[f])

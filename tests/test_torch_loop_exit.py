@@ -17,48 +17,17 @@ import torch
 from coloc_tpu_torch.config import RefinerOptions
 from coloc_tpu_torch.geometry import essential, so3
 from coloc_tpu_torch.sfm import ba
+import pose_cases
 from port_harness import one_torch_thread, time_limit  # noqa: F401
 
-K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)
 OPTS = RefinerOptions()
-
-
-def _pose_problem(seed, L, noise, rot):
-    """A pose-only problem that converges: points 3-8 m ahead seen at the
-    identity with `noise` px, the initial pose `rot` away."""
-    rng = np.random.default_rng(seed)
-    X = np.c_[rng.uniform(-2, 2, (L, 2)), rng.uniform(3, 8, (L, 1))].astype(np.float32)
-    uv = (X[:, :2] / X[:, 2:] * 300 + [160, 120]
-          + rng.normal(0, noise, (L, 2))).astype(np.float32)
-    R0 = so3.exp(torch.from_numpy(rng.normal(0, rot, 3).astype(np.float32))).numpy()
-    C0 = rng.normal(0, rot, 3).astype(np.float32)
-    return X, uv, R0, C0, np.zeros(3, np.float32)
-
-
-def _capped_problem():
-    """Pixels unrelated to the points, a far initial pose and strong
-    distortion: the LM rejects its steps until the damping reaches its
-    1e8 cap (found by a search over such problems)."""
-    rng = np.random.default_rng(713)
-    L = int(rng.integers(4, 40))
-    X = np.c_[rng.uniform(-2, 2, (L, 2)), rng.uniform(2, 8, (L, 1))].astype(np.float32)
-    uv = rng.uniform(0, 320, (L, 2)).astype(np.float32)
-    R0 = so3.exp(torch.from_numpy(rng.normal(0, 1.0, 3).astype(np.float32))).numpy()
-    C0 = rng.normal(0, 1, 3).astype(np.float32)
-    return X, uv, R0, C0, np.array([-0.5, 0.3, 0.1], np.float32)
 
 
 @pytest.fixture(scope="module")
 def lanes():
-    """Three drones' problems of 21 points: -> (R0, C0, X, uv, inliers, Ks,
-    dists), each with a leading axis of 3."""
-    capped = _capped_problem()
-    L = capped[0].shape[0]
-    probs = [_pose_problem(1, L, 0.5, 0.01), _pose_problem(2, L, 1.0, 0.2), capped]
-    X, uv, R0, C0, dist = (torch.from_numpy(np.stack([p[i] for p in probs]))
-                           for i in range(5))
-    return (R0, C0, X, uv, torch.ones(3, L, dtype=torch.bool),
-            torch.from_numpy(np.stack([K] * 3)), dist)
+    """Three drones' problems of 21 points (tests/pose_cases.py): -> (R0,
+    C0, X, uv, inliers, Ks, dists), each with a leading axis of 3."""
+    return pose_cases.lanes()
 
 
 def test_pose_lm_lanes_stop_apart(lanes):
@@ -102,7 +71,7 @@ def _ba_problem():
     return ba.BAProblem(
         Rs=t(Rs), Cs=t(Cs + [[0, 0, 0], [0.03, -0.02, 0.01]]),
         X=t(X + rng.normal(0, 0.05, X.shape)), obs=t(np.stack(obs)),
-        obs_mask=torch.from_numpy(mask), Ks=t(np.stack([K, K])), dists=t(np.zeros((2, 3))))
+        obs_mask=torch.from_numpy(mask), Ks=t(np.stack([pose_cases.K] * 2)), dists=t(np.zeros((2, 3))))
 
 
 @pytest.mark.parametrize("check_every", [3, RefinerOptions().max_iterations])
@@ -168,3 +137,33 @@ def test_spd_inv_jacobi_matches_eigh(evals, floored, tol):
     w, V = ba._jacobi_eigh(M)
     off = V.transpose(-1, -2) @ M @ V - torch.diag_embed(w)
     assert float(off.abs().max()) <= 1e-5 * float(M.abs().max())
+
+
+def test_pose_kernel_constants_are_the_twins():
+    """csrc/pose_lm.cu (the card's pose LM and covariance) repeats the plain
+    twin's constants: the Jacobi rounds and sweeps, the damping clamp, the
+    step tolerance; and its C entry points take the arguments that
+    ops/_build binds."""
+    import re
+    from pathlib import Path
+
+    from coloc_tpu_torch.ops import _build
+
+    src = (Path(ba.__file__).resolve().parent.parent / "csrc" / "pose_lm.cu").read_text()
+
+    def table(name):
+        body = re.search(name + r"\[5\]\[3\] = \{(.*?)\};", src, re.S).group(1)
+        return [list(map(int, re.findall(r"\d+", row))) for row in re.findall(r"\{([^{}]*)\}", body)]
+
+    assert table("kRoundP") == [[p for p, _ in r] for r in ba._JACOBI_ROUNDS]
+    assert table("kRoundQ") == [[q for _, q in r] for r in ba._JACOBI_ROUNDS]
+
+    def const(name):
+        return float(re.search(r"constexpr \w+ " + name + r" = ([0-9.e+-]+)f?;", src).group(1))
+
+    assert const("kJacobiSweeps") == ba._JACOBI_SWEEPS
+    assert (const("kDiagMin"), const("kDiagMax"), const("kStepTol")) == (
+        ba._DIAG_MIN, ba._DIAG_MAX, ba._STEP_TOL)
+    for name in ("coloc_pose_lm", "coloc_pose_cov"):
+        params = re.search(r'extern "C" int ' + name + r"\((.*?)\)", src, re.S).group(1)
+        assert params.count(",") + 1 == len(_build._SIGNATURES[name])
